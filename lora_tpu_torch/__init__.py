@@ -1,0 +1,23 @@
+"""lora_tpu_torch — the LoRa receiver framework in PyTorch and CUDA.
+
+A port of ``lora_tpu`` (JAX on a TPU) to PyTorch on an NVIDIA H100: plain
+tensor code in torch, and every TPU kernel as a kernel written by hand
+for Hopper. The package imports torch and numpy only. Entry points run on
+the card unless the caller passes ``device="cpu"``.
+
+Ported so far: the dense receiver on the fft engine, with the detection
+metric as a CUDA kernel (``csrc/det_metrics.cu``).
+"""
+
+__version__ = "0.1.0"
+
+from .config import LoRaConfig  # noqa: F401
+from .io.frames import Frame, PhyHeader  # noqa: F401
+
+
+def __getattr__(name):  # lazy: the receiver pulls in torch
+    if name == "DenseReceiver":
+        from .rx.dense import DenseReceiver
+
+        return DenseReceiver
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,0 +1,60 @@
+"""The state carried into the port: a receiver's host-built tables.
+
+The receiver has no weights. What a :class:`~lora_tpu_torch.rx.dense.
+DenseReceiver` holds besides its config is the set of tables it builds on
+the host (chirps, ifreq references, fold-DFT matrices, likeness rows,
+deinterleave gather tables, payload decode table). :func:`load_tables`
+installs such a set, as numpy arrays, on a receiver's device: the
+receiver's own (:func:`~lora_tpu_torch.rx.dense.build_tables`), or one
+taken from another implementation of the same receiver, so that the
+port's arithmetic can be checked apart from its table building.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+TABLE_KEYS = ("up", "down", "up_ifreq", "down_ifreq", "up_ifreq_v",
+              "fold_mat", "fold_up", "likeness_rows", "deint_tables", "pay_lut")
+
+
+def _expected_shapes(rx) -> dict:
+    from .rx.dense import codeword_capacity
+
+    sps, nb = rx.sps, rx.n_bins
+    cw = codeword_capacity(rx.cfg, rx.S)
+    return dict(
+        up=[(sps,)], down=[(sps,)], up_ifreq=[(sps,)], down_ifreq=[(sps,)],
+        up_ifreq_v=[(4 * sps,)],
+        fold_mat=[(sps, nb), (sps, nb)], fold_up=[(sps, nb), (sps, nb)],
+        likeness_rows=[(nb, sps - 1), (nb,)],
+        deint_tables=[(4, cw, 8)] * 3,
+        pay_lut=[(2, cw, 256)],
+    )
+
+
+def load_tables(rx, tables: dict) -> None:
+    """Install ``tables`` (numpy arrays, tuples of arrays for the
+    multi-part tables) on ``rx``'s device. Raises ``KeyError`` for a
+    missing table and ``ValueError`` for a shape that does not fit the
+    receiver's geometry."""
+    shapes = _expected_shapes(rx)
+    dev = rx.device
+    out = {}
+    for key in TABLE_KEYS:
+        val = tables[key]
+        parts = list(val) if isinstance(val, (tuple, list)) else [val]
+        got = [tuple(np.shape(p)) for p in parts]
+        if got != shapes[key]:
+            raise ValueError(f"table {key!r}: shapes {got}, expected {shapes[key]}")
+        tens = tuple(torch.as_tensor(np.ascontiguousarray(p), device=dev)
+                     for p in parts)
+        out[key] = tens if isinstance(val, (tuple, list)) else tens[0]
+    rx._up, rx._down = out["up"], out["down"]
+    rx._up_ifreq, rx._down_ifreq = out["up_ifreq"], out["down_ifreq"]
+    rx._up_ifreq_v = out["up_ifreq_v"]
+    rx._fold_mat, rx._fold_up = out["fold_mat"], out["fold_up"]
+    rx._likeness_rows = out["likeness_rows"]
+    rx._deint_tables = out["deint_tables"]
+    rx._pay_lut = out["pay_lut"]

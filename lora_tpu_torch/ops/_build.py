@@ -1,0 +1,71 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
+``nvcc`` for ``sm_90a`` into ``build/lib<name>-<hash>.so`` inside the
+package at first use, then loaded with ``ctypes``. The hash covers the
+source and the flags, so an edited source is never served by a stale
+library.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+SRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG / "build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def nvcc() -> str:
+    """Path of ``nvcc``: on ``PATH``, under ``$CUDA_HOME``, or in
+    ``/usr/local/cuda``."""
+    cands = [shutil.which("nvcc")]
+    if os.environ.get("CUDA_HOME"):
+        cands.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    cands.append("/usr/local/cuda/bin/nvcc")
+    for c in cands:
+        if c and os.path.isfile(c):
+            return c
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+                       "machine with the CUDA toolkit")
+
+
+def library_path(name: str) -> Path:
+    src = (SRC_DIR / f"{name}.cu").read_bytes()
+    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{h}.so"
+
+
+def build(name: str):
+    """Compile ``csrc/<name>.cu`` unless its current library exists.
+
+    Returns ``(library path, compiler log)``; the log is empty for a
+    library that was already built. Raises with the compiler's output if
+    the build fails."""
+    path = library_path(name)
+    if path.exists():
+        return path, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run(
+        [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}")
+    os.replace(tmp, path)  # atomic: a concurrent loader never sees half a file
+    return path, proc.stdout
+
+
+@functools.cache
+def load(name: str) -> ctypes.CDLL:
+    """The built library of ``csrc/<name>.cu``, building it if needed."""
+    path, _ = build(name)
+    return ctypes.CDLL(str(path))

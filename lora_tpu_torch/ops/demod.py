@@ -1,0 +1,182 @@
+"""Fold-DFT demodulation ops of the dense fft engine.
+
+Torch forms of the per-window DSP that the dense receiver's Phase B runs
+when the fold-DFT matrices fit (reference ``lib/decoder_impl.cc``):
+preamble CFO, parabolic upchirp sync, the SFD Pearson
+(``detect_downchirp`` :283-298,385-390), the folded dechirp argmax
+(``get_shift_fft`` :430-464) and the chirp CFO/STO separation. Every
+function takes complex64 windows ``[..., n]`` and is batched over the
+leading axes. The tables (:func:`make_fold_dft`,
+:func:`make_likeness_rows`) are built in numpy, in float64, and cast once.
+
+Tie-breaking follows the reference's strict ``>`` scans: ``torch.argmax``
+returns the first maximum. ``torch.round`` rounds half to even.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from .chirp import instantaneous_frequency
+
+SYNC_LIKENESS_MIN = 0.35  # >= 10-sigma above the noise band, half the
+                          # 10 dB-SNR sync-symbol score
+
+
+def _take(m: torch.Tensor, j: torch.Tensor) -> torch.Tensor:
+    return torch.take_along_dim(m, j[..., None], dim=-1)[..., 0]
+
+
+def _fold_power(windows: torch.Tensor, fold_mat) -> torch.Tensor:
+    """Folded dechirp power ``[..., n_bins]`` of complex windows
+    ``[..., sps]`` through the fold-DFT planes ``(Er, Ei)``."""
+    er, ei = fold_mat
+    wr, wi = windows.real, windows.imag
+    fr = wr @ er - wi @ ei
+    fi = wr @ ei + wi @ er
+    return fr * fr + fi * fi
+
+
+def preamble_cfo(x2: torch.Tensor, sps: int, samp_rate: float) -> torch.Tensor:
+    """CFO from two adjacent preamble symbols ``[..., 2*sps]``: a carrier
+    offset ``f`` rotates symbol k+1 against symbol k by
+    ``2*pi*f*sps/fs``, so ``angle(sum x[t+sps] conj(x[t]))`` recovers
+    ``f`` within ``+-fs/(2*sps)``."""
+    a = x2[..., :sps]
+    b = x2[..., sps:2 * sps]
+    d = torch.sum(b * torch.conj(a), dim=-1)
+    ang = torch.atan2(d.imag, d.real)
+    return (ang / (2.0 * math.pi * sps) * samp_rate).to(torch.float32)
+
+
+def upchirp_sync_parab(windows2: torch.Tensor, fold_mat, sps: int,
+                       decim: int) -> torch.Tensor:
+    """Upchirp boundary offset in ``[0, sps + 2*decim)`` from one fold-DFT
+    matmul and a parabolic vertex over the three folded powers around the
+    argmax. The repeated preamble dechirps to one continuous tone whose
+    fractional bin gives the boundary to ~``decim/5`` samples, inside the
+    fft demod's ``+-decim/2`` alignment tolerance. int32 ``[...]``."""
+    m = _fold_power(windows2[..., :sps], fold_mat)
+    n = m.shape[-1]
+    j = torch.argmax(m, dim=-1)
+    m0 = _take(m, j)
+    ml = _take(m, (j - 1) % n)
+    mr = _take(m, (j + 1) % n)
+    denom = ml - 2.0 * m0 + mr
+    p = torch.where(denom.abs() > 1e-20, 0.5 * (ml - mr) / denom,
+                    torch.zeros_like(denom))
+    d0 = sps - (j.to(torch.float32) + p) * decim
+    return torch.clamp(torch.round(d0), 0, sps + 2 * decim - 1).to(torch.int32)
+
+
+def fft_shift_idx_mm(windows: torch.Tensor, fold_mat) -> torch.Tensor:
+    """Folded dechirp argmax bin of ``[..., sps]`` windows (not yet
+    dechirped: the matrix carries the chirp). int32 ``[...]``."""
+    return torch.argmax(_fold_power(windows, fold_mat), dim=-1).to(torch.int32)
+
+
+def chirp_coarse_cfo(up_window: torch.Tensor, sfd_window: torch.Tensor,
+                     n_bins: int, sps: int, samp_rate: float,
+                     fold_down, fold_up) -> torch.Tensor:
+    """Coarse full-range CFO by chirp CFO/STO separation: a carrier offset
+    moves the dechirped tone of an upchirp and of a downchirp the same
+    way, a timing offset moves them oppositely, so the mean of the two
+    signed bins is the integer-bin CFO. Hz, float32 ``[...]``."""
+    b_up = fft_shift_idx_mm(up_window, fold_down)
+    b_dn = fft_shift_idx_mm(sfd_window, fold_up)
+    s_up = torch.where(b_up > n_bins // 2, b_up - n_bins, b_up)
+    s_dn = torch.where(b_dn > n_bins // 2, b_dn - n_bins, b_dn)
+    return ((s_up + s_dn).to(torch.float32) / 2.0) * (samp_rate / sps)
+
+
+def combine_cfo(coarse_hz: torch.Tensor, frac_hz: torch.Tensor, sps: int,
+                samp_rate: float) -> torch.Tensor:
+    """Snap the coarse estimate (full range, half-bin resolution) to the
+    total consistent with the fine one (one-bin range)."""
+    bin_hz = samp_rate / sps
+    n = torch.round((coarse_hz - frac_hz) / bin_hz)
+    return (frac_hz + n * bin_hz).to(torch.float32)
+
+
+def downchirp_pearson(window: torch.Tensor, downchirp_ifreq: torch.Tensor,
+                      sps: int) -> torch.Tensor:
+    """Pearson correlation with the ideal downchirp ifreq over the first
+    ``sps-1`` samples (reference ``cross_correlate_ifreq`` with
+    ``to_idx = sps-1``: biased deviations, divided by ``to_idx``), in the
+    single-pass moment form. A zero-variance window scores 0, which fails
+    both SFD thresholds as the reference's NaN does. float32 ``[...]``."""
+    n = sps - 1
+    x = instantaneous_frequency(window)[..., :n]
+    y = downchirp_ifreq[:n]
+    yc = y - y.mean()
+    sy = torch.sqrt(torch.mean(yc * yc))
+    mx = x.sum(dim=-1) / n
+    ex2 = (x * x).sum(dim=-1) / n
+    var = torch.clamp(ex2 - mx * mx, min=0.0)
+    sx = torch.sqrt(var)
+    num = x @ yc
+    denom = sx * sy
+    ok = denom > 0
+    c = torch.where(ok, num / torch.where(ok, denom, torch.ones_like(denom)),
+                    torch.zeros_like(num))
+    return (c / n).to(torch.float32)
+
+
+def upchirp_likeness_rows(window: torch.Tensor, bin_idx: torch.Tensor,
+                          rows) -> torch.Tensor:
+    """Pearson of ``ifreq(window)`` against the ideal upchirp ifreq at the
+    demodulated bin's own lag, through the precomputed centred rows of
+    :func:`make_likeness_rows`: evidence that a window holds a genuine,
+    possibly shifted, upchirp. The row is picked by a gather, which is
+    exact as the one-hot matmul is. float32 ``[...]``."""
+    rows_c, inv = rows
+    n_bins, n = rows_c.shape
+    ifr = instantaneous_frequency(window)[..., :n]
+    b = (bin_idx % n_bins).long()
+    ref = rows_c[b]
+    ref_inv = inv[b]
+    x = ifr - ifr.mean(dim=-1, keepdim=True)
+    num = (x * ref).sum(dim=-1)
+    xn = torch.sqrt((x * x).sum(dim=-1))
+    ok = xn > 0
+    c = torch.where(ok, num * ref_inv / torch.where(ok, xn, torch.ones_like(xn)),
+                    torch.zeros_like(num))
+    return c.to(torch.float32)
+
+
+def make_fold_dft(chirp: np.ndarray, sps: int, n_bins: int):
+    """Dechirp + fold + DFT as one ``[sps, n_bins]`` complex matrix ``E``
+    with ``folded_spectrum(w) = w @ E``: the fold keeps FFT bins
+    ``[0, (N+1)/2)`` and ``[sps - N/2, sps)`` and adds bin ``N/2`` into
+    bin ``N/2`` (reference lib/decoder_impl.cc:443-456). Built in float64;
+    returns ``(Er, Ei)`` float32 numpy."""
+    k = np.arange(sps)
+    h = (n_bins + 1) // 2
+    cols = np.empty((sps, n_bins), np.complex128)
+    for j in range(n_bins):
+        b = j if j < h else sps - n_bins // 2 + (j - h)
+        e = np.exp(-2j * np.pi * k * b / sps)
+        if j == n_bins // 2:
+            e = e + np.exp(-2j * np.pi * k * (n_bins // 2) / sps)
+        cols[:, j] = e
+    E = np.asarray(chirp)[:, None] * cols
+    return E.real.astype(np.float32), E.imag.astype(np.float32)
+
+
+def make_likeness_rows(upchirp_ifreq_tiled: np.ndarray, sps: int,
+                       decim: int, n_bins: int):
+    """Centred reference rows of the upchirp likeness for every bin: row
+    ``b`` is the tiled upchirp ifreq at offset ``(b+1)*decim + sps``.
+    Returns ``(rows_c [n_bins, sps-1], inv_norm [n_bins])`` float32."""
+    n = sps - 1
+    t = np.asarray(upchirp_ifreq_tiled)
+    idx = ((np.arange(n_bins)[:, None] + 1) * decim + sps
+           + np.arange(n)[None, :])
+    rows = t[idx]
+    rows_c = rows - rows.mean(axis=-1, keepdims=True)
+    norm = np.sqrt((rows_c * rows_c).sum(axis=-1))
+    inv = np.where(norm > 0, 1.0 / np.where(norm > 0, norm, 1.0), 0.0)
+    return rows_c.astype(np.float32), inv.astype(np.float32)
