@@ -7,21 +7,28 @@ Phases, each of which passes or exits non-zero:
 
 1. the card: its name, and name + power limit from ``nvidia-smi``; the
    float32 matmul settings (TF32 off);
-2. build every kernel of the main path from ``lora_tpu_torch/csrc``;
+2. build every kernel from ``lora_tpu_torch/csrc``, one ``nvcc`` per
+   source, all started together;
 3. each kernel against its plain torch version on the card, float32 and
-   bfloat16 planes, at the main path's shape and at the ragged and odd
-   geometries;
-4. the main path at full width: the dense receiver (fft engine) on the
+   bfloat16, at the main paths' shapes and at ragged and odd geometries;
+4. the dense path at full width: the dense receiver (fft engine) on the
    64-channel x 2048-symbol SF7 @ 1 Msps block, float32 then bfloat16
    planes, with the decode gate and the kernels' launch counts; then
    ``run()`` on a small block, its frames held against the port on the
    CPU;
-5. the receiver's throughput (best of rounds of back-to-back calls),
-   beside single synchronised calls, the host's enqueue time, the host
+5. the wideband path at full width, on captures built on the card: the
+   PFB receiver with the global candidate pool at M = 1024 (64 active
+   channels, float32 and bfloat16 planes; then all 1024 channels active)
+   and at M = 4096 (the two-stage DFT), with the decode gates and the
+   kernels' launch counts; then ``run()`` on a small capture, held
+   against the CPU;
+6. each path's throughput (best of rounds of back-to-back calls), beside
+   single synchronised calls, the host's enqueue time, the host
    synchronisations in a call and the allocator's device allocations;
-6. where one ``process()`` call's device time goes (torch.profiler), and
-   the device's idle share; then phase 5 again, after the profiler;
-7. each kernel's time beside its bound and its plain version's time.
+7. where one call's device time goes (torch.profiler), and the device's
+   idle share; then phase 6 again, after the profiler;
+8. each kernel's time beside its bound, its plain version's time and a
+   library call's time where one computes the same function.
 
 The line before the last is the ``kernels`` JSON line; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -40,6 +47,12 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 TOL_CORR_ATOL = 2e-5     # corr: |dot|/sqrt(e e), sums in another order
 TOL_ENER_RTOL = 1e-5     # energies: float32 sums of up to 32768 squares
+# polyphase FIR, float32 out: absolute, times sum_j |h_j| * max|x| (the
+# kernel sums the same products in the same order; the bound allows a
+# reordering of K float32 sums)
+TOL_FIR_F32 = 1e-6
+TOL_FIR_BF16 = 2.0 ** -7  # bf16 out: one bf16 ulp of the plain result (relative)
+DEADBEEF = bytes.fromhex("deadbeef")
 
 
 def check(cond, msg: str) -> None:
@@ -84,13 +97,28 @@ def phase_device():
     return name, smi_line
 
 
+def counts() -> dict:
+    from lora_tpu_torch.ops import cuda_kernels as ck
+
+    return {"det_metrics": ck.detection_metrics_kernel.launches,
+            "pfb_fir": ck.pfb_fir_kernel.launches}
+
+
+def zero_counts() -> None:
+    from lora_tpu_torch.ops import cuda_kernels as ck
+
+    ck.detection_metrics_kernel.launches = 0
+    ck.pfb_fir_kernel.launches = 0
+
+
 def phase_build():
     from lora_tpu_torch.ops._build import build
 
-    for name in ("det_metrics",):
-        t0 = time.perf_counter()
-        _, log = build(name)
-        print(f"build: {name} in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    built = build("det_metrics", "pfb_fir")
+    print(f"build: {', '.join(built)} (one nvcc each, started together) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for name, (_, log) in built.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  {name}: {line.strip()}")
@@ -132,6 +160,58 @@ def phase_kernel_vs_plain() -> float:
                   f"energy max rel err {err_e:.3g}")
             check(err_c <= TOL_CORR_ATOL, f"corr error {err_c} > {TOL_CORR_ATOL}")
             check(err_e <= TOL_ENER_RTOL, f"energy error {err_e} > {TOL_ENER_RTOL}")
+    return worst
+
+
+def phase_pfb_vs_plain() -> float:
+    """K4 against its plain version on the card. Returns the largest
+    absolute error of the float32 outputs."""
+    import torch
+
+    from lora_tpu_torch.ops.cuda_kernels import pfb_fir_kernel, pfb_fir_planes
+
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    # (M, n_vec, K, tail samples past n_vec * M): the wideband bench at
+    # M = 1024 and 4096; M = 8 and 1000 (ragged branch tiles); n_vec not a
+    # multiple of 16; K = 1 and 16; K = 37 (three tap passes); n_vec = K
+    # (one output row); L not a multiple of M
+    geoms = [(1024, 24576, 10, 0), (4096, 24576, 10, 0), (8, 4000, 10, 0),
+             (1000, 517, 10, 0), (128, 533, 10, 0), (256, 300, 1, 0),
+             (256, 300, 16, 0), (64, 400, 37, 0), (512, 10, 10, 0),
+             (1024, 200, 10, 333)]
+    worst = 0.0
+    for M, n_vec, K, tail in geoms:
+        x32 = torch.randn((2, n_vec * M + tail), generator=gen, device="cuda")
+        h = 0.1 * torch.randn((K, M), generator=gen, device="cuda")
+        in_dtypes = (torch.float32, torch.bfloat16) if M in (1024, 1000) else (torch.float32,)
+        for in_dtype in in_dtypes:
+            x = x32.to(in_dtype)
+            for out in (torch.float32, torch.bfloat16):
+                before = pfb_fir_kernel.launches
+                got = pfb_fir_kernel(x, h, out)
+                torch.cuda.synchronize()
+                check(pfb_fir_kernel.launches == before + 1,
+                      "the pfb_fir launch count did not rise")
+                ref = pfb_fir_planes(x, h, out)
+                shape = (2, n_vec - K + 1, M)
+                check(tuple(got.shape) == shape and got.dtype == out,
+                      f"pfb_fir: {tuple(got.shape)} {got.dtype}, expected {shape} {out}")
+                check(bool(torch.isfinite(got).all()), "pfb_fir: non-finite output")
+                diff = (got.float() - ref.float()).abs()
+                err = float(diff.max())
+                label = (f"pfb_fir {str(in_dtype)[6:]}->{str(out)[6:]} M={M} "
+                         f"n_vec={n_vec} K={K} tail={tail}")
+                if out == torch.float32:
+                    tol = (TOL_FIR_F32 * float(h.abs().sum(0).max())
+                           * float(x.float().abs().max()))
+                    print(f"{label}: max abs err {err:.3g} (tolerance {tol:.3g})")
+                    check(err <= tol, f"{label}: error {err} > {tol}")
+                    worst = max(worst, err)
+                else:
+                    over = int((diff > TOL_FIR_BF16 * ref.float().abs()).sum())
+                    print(f"{label}: max abs err {err:.3g}, {over} outputs past one bf16 ulp")
+                    check(over == 0, f"{label}: {over} outputs past one bf16 ulp")
+                del got, ref, diff
     return worst
 
 
@@ -181,7 +261,6 @@ def phase_main_path(cfg, x, expected):
     import torch
 
     from lora_tpu_torch import DenseReceiver
-    from lora_tpu_torch.ops.cuda_kernels import detection_metrics_kernel
     from lora_tpu_torch.ops.xfer import pack_iq
 
     rx = DenseReceiver(cfg, max_candidates=8, max_symbols=24, sfd_search=12,
@@ -192,13 +271,14 @@ def phase_main_path(cfg, x, expected):
     for dtype in (torch.float32, torch.bfloat16):
         xd = pack_iq(x, dtype=dtype)
         torch.cuda.synchronize()
-        detection_metrics_kernel.launches = 0
+        zero_counts()
         res = rx.process(xd)
         torch.cuda.synchronize()
-        launches[dtype] = detection_metrics_kernel.launches
+        launches[dtype] = counts()
         label = str(dtype)[6:]
-        check(launches[dtype] > 0, f"{label}: the main path did not launch det_metrics")
-        print(f"main path {label}: det_metrics launches {launches[dtype]}")
+        check(launches[dtype]["det_metrics"] > 0,
+              f"{label}: the main path did not launch det_metrics")
+        print(f"main path {label}: launches {launches[dtype]}")
         check(tuple(res.valid.shape) == (x.shape[0], rx.P), "result shape")
         gate(res, expected, label)
         planes[dtype] = xd
@@ -217,18 +297,177 @@ def phase_run_small(cfg, x, pkt_len):
         rx = DenseReceiver(cfg, max_candidates=8, max_symbols=24,
                            sfd_search=12, demod_method="fft", device=dev)
         frames[dev] = rx.run(small)
-    fg, fc = frames["cuda"], frames["cpu"]
-    check(len(fg) > 0, "run(): no frames")
-    check(len(fg) == len(fc), f"run(): {len(fg)} frames on the card, {len(fc)} on the CPU")
+    check(len(frames["cuda"]) > 0, "run(): no frames")
+    same_frames(frames["cuda"], frames["cpu"], "run()")
+    print(f"run(): {len(frames['cuda'])} frames on a 2-channel block, equal to the CPU's")
+
+
+def same_frames(fg, fc, label: str) -> None:
+    check(len(fg) == len(fc), f"{label}: {len(fg)} frames on the card, {len(fc)} on the CPU")
     for a, b in zip(fg, fc):
-        check(a.payload[:4] == bytes.fromhex("deadbeef"), "run(): wrong payload")
-        check(a.crc_ok is True, "run(): MAC CRC fails")
-        check((a.phy_header.to_bytes(), a.payload, a.channel, a.sample_index)
-              == (b.phy_header.to_bytes(), b.payload, b.channel, b.sample_index),
-              "run(): frame differs from the CPU's")
-        check(abs(a.cfo - b.cfo) <= 1.0, "run(): cfo differs from the CPU's")
-        check(abs(a.snr - b.snr) <= 1e-4 * abs(b.snr), "run(): snr differs")
-    print(f"run(): {len(fg)} frames on a 2-channel block, equal to the CPU's")
+        check(a.payload[:4] == DEADBEEF, f"{label}: wrong payload")
+        check(a.crc_ok is True, f"{label}: MAC CRC fails")
+        check((a.phy_header.to_bytes(), a.payload, a.channel, a.sample_index,
+               a.tap_header.frequency)
+              == (b.phy_header.to_bytes(), b.payload, b.channel, b.sample_index,
+                  b.tap_header.frequency),
+              f"{label}: frame differs from the CPU's")
+        check(abs(a.cfo - b.cfo) <= 1.0, f"{label}: cfo differs from the CPU's")
+        check(abs(a.snr - b.snr) <= 1e-4 * abs(b.snr), f"{label}: snr differs")
+
+
+def wideband_capture(M: int, active, seed: int = 0):
+    """``bench.py``'s wideband capture, built on the card: SF7 CR4/8
+    channels at 250 ksps, ``L = M * 96 * 256`` wideband samples of
+    complex noise (sigma 1e-3 a part, a seeded ``torch.Generator``), and
+    one ``deadbeef`` packet from the port's modulator on each active
+    channel, upconverted to the channel's frequency with a float64
+    carrier phase (reduced mod 1 cycle) at ``bench.py``'s offsets.
+    Returns ``(chan_config, planes [2, L] float32)``."""
+    import math
+
+    import torch
+
+    from lora_tpu_torch import LoRaConfig
+    from lora_tpu_torch.channelizer import pfb_channel_freqs
+    from lora_tpu_torch.tx.modulator import modulate_frame
+
+    cfg = LoRaConfig(sf=7, cr=4, samp_rate=250e3, crc=True)
+    wide_rate = M * cfg.samp_rate
+    wide_cfg = LoRaConfig(sf=7, cr=4, samp_rate=wide_rate, crc=True)
+    L = M * 96 * cfg.samples_per_symbol
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.view_as_complex(1e-3 * torch.randn((L, 2), generator=gen, device="cuda"))
+    pkt = torch.from_numpy(modulate_frame(wide_cfg, DEADBEEF, snr_db=None)).to("cuda")
+    pkt = pkt.to(torch.complex128)
+    n = pkt.shape[0]
+    t = torch.arange(n, dtype=torch.float64, device="cuda")
+    freqs = pfb_channel_freqs(wide_rate, M)
+    for c in active:
+        pos = min((8 + (c % 7)) * cfg.samples_per_symbol * M // 8, L - n - 1)
+        cycles = torch.remainder((t + pos) * (freqs[c] / wide_rate), 1.0)
+        carrier = torch.polar(torch.ones_like(cycles), 2.0 * math.pi * cycles)
+        x[pos:pos + n] += (pkt * carrier).to(torch.complex64)
+    return cfg, torch.stack([x.real, x.imag]).contiguous()
+
+
+def wideband_gate(res, active, label: str, no_drops: bool = False) -> None:
+    """Every active channel gives ``de ad be ef``, no valid lane gives a
+    wrong payload, and (``no_drops``) no candidate was dropped."""
+    valid = res.valid.cpu().numpy()
+    chan = res.channel.cpu().numpy()[valid]
+    pay = res.payload.cpu().numpy()[valid]
+    plen = res.length.cpu().numpy()[valid]
+    good = (pay[:, :4] == list(DEADBEEF)).all(axis=-1) & (plen >= 4)
+    got = {int(c) for c in chan[good]}
+    bad = int((~good).sum())
+    n_dropped = int(res.n_dropped)
+    for name in ("snr", "cfo"):
+        check(bool(getattr(res, name)[res.valid].isfinite().all()),
+              f"{label}: non-finite {name}")
+    print(f"wideband {label}: {len(got & set(active))}/{len(active)} channels give "
+          f"de ad be ef, {int(valid.sum())} valid lanes, {bad} wrong payloads, "
+          f"n_dropped {n_dropped}")
+    check(got == set(active), f"{label}: channels {sorted(set(active) - got)[:8]} missing, "
+          f"{sorted(got - set(active))[:8]} unexpected")
+    check(bad == 0, f"{label}: {bad} wrong payloads")
+    if no_drops:
+        check(n_dropped == 0, f"{label}: n_dropped {n_dropped}")
+
+
+def run_wideband(wr, xd, label: str):
+    """One ``process()`` call with every count zeroed just before it and
+    read just after; the path must launch K4 and K1 once each."""
+    import torch
+
+    torch.cuda.synchronize()
+    zero_counts()
+    res = wr.process(xd)
+    torch.cuda.synchronize()
+    n = counts()
+    print(f"wideband {label}: launches {n}")
+    check(n == {"det_metrics": 1, "pfb_fir": 1},
+          f"{label}: expected one det_metrics and one pfb_fir launch, got {n}")
+    return res, n
+
+
+def phase_wideband():
+    """The wideband path at full width: ``bench.py --wideband 1024`` in
+    float32 and bf16 planes, ``--wideband-full 1024`` and ``--wideband
+    4096``. Returns the M = 1024 receivers and capture for the later
+    phases, and the float32 call's launch counts."""
+    import torch
+
+    from lora_tpu_torch import WidebandReceiver
+
+    kw = dict(max_candidates=2, max_symbols=24, sfd_search=12, demod_method="fft")
+    M = 1024
+    active = list(range(0, M, 16))
+    cfg, xd = wideband_capture(M, active)
+    receivers, launches = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        wr = WidebandReceiver(cfg, M, pool=2 * len(active), plane_dtype=dtype, **kw)
+        check(wr.device.type == "cuda", "the wideband receiver did not default to the card")
+        label = f"M={M} {str(dtype)[6:]} pool={wr.pool}"
+        res, launches[dtype] = run_wideband(wr, xd, label)
+        check(tuple(res.valid.shape) == (wr.pool,), f"{label}: result shape")
+        wideband_gate(res, active, label)
+        receivers[dtype] = wr
+
+    full = list(range(M))
+    _, xfull = wideband_capture(M, full, seed=1)
+    wr = WidebandReceiver(cfg, M, pool=M + M // 8, plane_dtype=torch.bfloat16, **kw)
+    label = f"M={M} full occupancy bfloat16 pool={wr.pool}"
+    res, _ = run_wideband(wr, xfull, label)
+    wideband_gate(res, full, label, no_drops=True)
+    del xfull, wr, res
+
+    M4 = 4096
+    active4 = list(range(0, M4, M4 // 64))
+    cfg4, x4 = wideband_capture(M4, active4, seed=2)
+    wr = WidebandReceiver(cfg4, M4, pool=2 * len(active4), plane_dtype=torch.bfloat16, **kw)
+    check(wr.pfb._two_stage_split(M4, 2048) == (64, 64), "M=4096 must take the 64 x 64 split")
+    label = f"M={M4} two-stage DFT bfloat16 pool={wr.pool}"
+    res, _ = run_wideband(wr, x4, label)
+    wideband_gate(res, active4, label)
+    del x4, wr, res
+    torch.cuda.empty_cache()
+    return receivers, xd, launches
+
+
+def phase_wideband_run_small():
+    """``run()`` on a small wideband capture (M = 8, three packets, host
+    numpy), pooled and per-channel, on the card and on the CPU: the frames
+    must agree field by field."""
+    import numpy as np
+
+    from lora_tpu_torch import LoRaConfig, WidebandReceiver
+    from lora_tpu_torch.channelizer import pfb_channel_freqs
+    from lora_tpu_torch.tx.modulator import modulate_frame
+
+    M = 8
+    cfg = LoRaConfig(sf=7, cr=4, samp_rate=250e3, crc=True)
+    wide_rate = M * cfg.samp_rate
+    wide_cfg = LoRaConfig(sf=7, cr=4, samp_rate=wide_rate, crc=True)
+    sps_w = wide_cfg.samples_per_symbol
+    rng = np.random.default_rng(5)
+    x = 1e-3 * (rng.normal(size=(160 * sps_w, 2)) @ [1, 1j])
+    freqs = pfb_channel_freqs(wide_rate, M)
+    for c in (1, 3, 6):
+        pkt = modulate_frame(wide_cfg, DEADBEEF + bytes([c]), snr_db=None)
+        pos = (8 + 3 * c) * sps_w
+        t = np.arange(len(pkt)) + pos
+        x[pos:pos + len(pkt)] += pkt * np.exp(2j * np.pi * freqs[c] / wide_rate * t)
+    x = x.astype(np.complex64)
+    for pool in (None, 8):
+        frames = {dev: WidebandReceiver(cfg, M, pool=pool, max_candidates=2, max_symbols=24,
+                                        sfd_search=12, demod_method="fft", device=dev).run(x)
+                  for dev in ("cuda", "cpu")}
+        check(sorted(f.channel for f in frames["cuda"]) == [1, 3, 6],
+              f"wideband run() pool={pool}: channels {[f.channel for f in frames['cuda']]}")
+        same_frames(frames["cuda"], frames["cpu"], f"wideband run() pool={pool}")
+    print("wideband run(): 3 frames on an 8-channel capture, pooled and per-channel, "
+          "equal to the CPU's")
 
 
 def host_syncs(fn) -> list:
@@ -248,22 +487,22 @@ def host_syncs(fn) -> list:
             if "called a synchronizing" in str(w.message)]
 
 
-def phase_throughput(rx, planes, when, device_name, smi_line):
-    """``dense_rx_throughput``: best of 5 rounds of 10 back-to-back
-    ``process()`` calls with one synchronise a round. Each round is
+def phase_throughput(metric, calls, when, device_name, smi_line):
+    """``metric`` for each ``label -> (fn, planes, samples)`` of ``calls``:
+    best of 5 rounds of 10 back-to-back ``fn(planes)`` calls with one
+    synchronise a round, in Msamples/s of ``samples`` a call. Each round is
     followed by 10 single calls, each between two synchronises, on the
     same planes, so the two timings share the host's state; the line also
-    gives the host's own time in a single call (until ``process()``
-    returns), the host synchronisations in a call, and the device
-    allocations the caching allocator made over the rounds."""
+    gives the host's own time in a single call (until the call returns),
+    the host synchronisations in a call, and the device allocations the
+    caching allocator made over the rounds."""
     import torch
 
     control = host_syncs(lambda: torch.ones(1, device="cuda").item())
     check(len(control) == 1, f"sync debug mode saw {len(control)} syncs in one .item()")
-    for dtype, xd in planes.items():
-        C, _, L = xd.shape
+    for label, (fn, xd, samples) in calls.items():
         iters = 10
-        syncs = host_syncs(lambda: rx.process(xd))
+        syncs = host_syncs(lambda: fn(xd))
         torch.cuda.synchronize()
         mem0 = torch.cuda.memory_stats()
         loop_ms, single_ms, enqueue_ms = [], [], []
@@ -271,23 +510,23 @@ def phase_throughput(rx, planes, when, device_name, smi_line):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             for _ in range(iters):
-                rx.process(xd)
+                fn(xd)
             torch.cuda.synchronize()
             loop_ms.append((time.perf_counter() - t0) * 1e3 / iters)
             for _ in range(iters):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                rx.process(xd)
+                fn(xd)
                 t1 = time.perf_counter()
                 torch.cuda.synchronize()
                 single_ms.append((time.perf_counter() - t0) * 1e3)
                 enqueue_ms.append((t1 - t0) * 1e3)
         mem1 = torch.cuda.memory_stats()
         print(json.dumps({
-            "metric": "dense_rx_throughput", "when": when, "dtype": str(dtype)[6:],
-            "value": C * L / min(loop_ms) / 1e3,
-            "rounds": [C * L / t / 1e3 for t in loop_ms],
-            "unit": "Msamples/s", "block": [C, L],
+            "metric": metric, "when": when, "dtype": label,
+            "value": samples / min(loop_ms) / 1e3,
+            "rounds": [samples / t / 1e3 for t in loop_ms],
+            "unit": "Msamples/s", "block": list(xd.shape),
             "loop_call_ms": loop_ms,
             "single_call_ms_median": sorted(single_ms)[len(single_ms) // 2],
             "single_call_ms_min": min(single_ms),
@@ -299,11 +538,97 @@ def phase_throughput(rx, planes, when, device_name, smi_line):
             "device": device_name, "nvidia_smi": smi_line}))
 
 
-def phase_kernel_times(rx, planes, launches, worst_err):
+def dense_calls(rx, planes) -> dict:
+    return {str(d)[6:]: (rx.process, xd, xd.shape[0] * xd.shape[-1]) for d, xd in planes.items()}
+
+
+def wideband_calls(receivers, xd) -> dict:
+    return {str(d)[6:]: (wr.process, xd, xd.shape[-1]) for d, wr in receivers.items()}
+
+
+def call_ms(fn, n: int) -> list:
+    """Host-clock times of ``n`` single calls of ``fn()``, each between two
+    ``torch.cuda.synchronize()``, in ms."""
+    import torch
+
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def device_rows(fn):
+    """Device time of one ``fn()`` call by kernel name (torch.profiler):
+    ``(profiled call ms, [(name, ms, count)] largest first)``. Device-side
+    events only: an aten op's entry repeats its kernels' time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        prof_ms = call_ms(fn, 1)[0]
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    return prof_ms, rows
+
+
+def is_gemm(name: str) -> bool:
+    """A cuBLAS/CUTLASS matrix-product kernel, by its name."""
+    name = name.lower()
+    return any(k in name for k in ("gemm", "xmma", "cutlass", "cublas", "nvjet"))
+
+
+def phase_profile(label, calls):
+    """Where one call's time goes: device time by kernel name against the
+    call's wall time; the difference is the device's idle share. The idle
+    share is taken against the median unprofiled call, since the profiler
+    slows the host's launches."""
+    out = []
+    for dtype, (fn, xd, _) in calls.items():
+        wall_ms = sorted(call_ms(lambda: fn(xd), 5))[2]
+        prof_ms, rows = device_rows(lambda: fn(xd))
+        busy = sum(r[1] for r in rows)
+        n_launch = sum(r[2] for r in rows)
+        print(f"profile {label} {dtype}: wall {wall_ms:.3f} ms (median of 5 "
+              f"unprofiled calls; {prof_ms:.3f} ms profiled), device busy "
+              f"{busy:.3f} ms, idle {100 * (1 - busy / wall_ms):.1f} %, "
+              f"{n_launch} device kernels and copies")
+        for key, ms, count in rows[:12]:
+            print(f"  {ms:8.3f} ms {100 * ms / busy:5.1f} % x{count:<4d} {key[:90]}")
+        out.append((rows, busy))
+    return out
+
+
+def phase_profile_wideband(receivers, xd):
+    """The wideband call's device time in the layers of the path: K4, the
+    DFT GEMMs (the channelizer profiled alone: its GEMM kernels), K1, and
+    the rest (the active-channel gather, candidates, Phase B, decode tail)."""
+    for dtype, wr in receivers.items():
+        dtype = str(dtype)[6:]
+        [(rows, busy)] = phase_profile("wideband", {dtype: (wr.process, xd, None)})
+        _, prow = device_rows(lambda: wr.pfb.planes(xd, out_dtype=wr.plane_dtype))
+        k4 = sum(ms for k, ms, _ in rows if "pfb_fir" in k)
+        k1 = sum(ms for k, ms, _ in rows if "det_metrics" in k)
+        dft = sum(ms for k, ms, _ in prow if is_gemm(k))
+        pfb = sum(ms for _, ms, _ in prow)
+        print(f"profile wideband {dtype} by layer: K4 {k4:.3f} ms, DFT GEMMs {dft:.3f} ms, "
+              f"rest of the channelizer {pfb - k4 - dft:.3f} ms, K1 {k1:.3f} ms, candidates + "
+              f"Phase B + decode tail {busy - pfb - k1:.3f} ms, of {busy:.3f} ms busy")
+
+
+def phase_kernel_times(rx, planes, launches, worst_err, receivers, xd_wide,
+                       wide_launches, worst_fir):
     import torch
 
     from lora_tpu_torch.ops.cuda_kernels import (detection_metrics_kernel,
-                                                 detection_metrics_planes)
+                                                 detection_metrics_planes,
+                                                 pfb_fir_kernel, pfb_fir_planes)
 
     sps = rx.sps
     stats = {}
@@ -323,65 +648,70 @@ def phase_kernel_times(rx, planes, launches, worst_err):
         print(f"det_metrics {str(dtype)[6:]} at {list(xd.shape)}: kernel "
               f"{st['ms']:.4f} ms, plain {st['plain_ms']:.4f} ms, bound "
               f"{st['bound_ms']:.4f} ms (bytes {t_bytes:.4f}, ops {t_ops:.4f}), "
-              f"launches per process() {launches[dtype]}")
+              f"launches per process() {launches[dtype]['det_metrics']}")
+
+    # K4 at the wideband path's shape: float32 planes in, the receiver's
+    # plane dtype out
+    fir = {}
+    for dtype, wr in receivers.items():
+        h = wr.pfb._h
+        K, M = h.shape
+        n_vec = xd_wide.shape[-1] // M
+        n_out = n_vec - K + 1
+        out_size = torch.empty((), dtype=dtype).element_size()
+        # bytes: planes read once, taps read once, output written once;
+        # operations: one multiply and one add a tap and output
+        t_bytes = (2 * n_vec * M * xd_wide.element_size() + K * M * 4
+                   + 2 * n_out * M * out_size) / HBM_BYTES_PER_S * 1e3
+        t_ops = 2 * K * 2 * n_out * M / F32_FLOPS_PER_S * 1e3
+        # library yardstick: one grouped conv1d (cuDNN, TF32 off) on the
+        # planes pre-transposed to [2, M, n_vec] outside the timing; conv1d
+        # correlates, so its weights are the taps h[:, m] as they stand
+        xt = xd_wide[:, : n_vec * M].reshape(2, n_vec, M).transpose(1, 2).contiguous().to(dtype)
+        w = h.t().contiguous().to(dtype).unsqueeze(1)            # [M, 1, K]
+        conv = torch.nn.functional.conv1d(xt, w, groups=M)      # [2, M, n_out]
+        ref = pfb_fir_planes(xd_wide, h, dtype)
+        lib_err = float((conv.float().transpose(1, 2) - ref.float()).abs().max())
+        st = dict(ms=cuda_ms(lambda: pfb_fir_kernel(xd_wide, h, dtype), 20),
+                  plain_ms=cuda_ms(lambda: pfb_fir_planes(xd_wide, h, dtype), 5),
+                  library_ms=cuda_ms(lambda: torch.nn.functional.conv1d(xt, w, groups=M), 20),
+                  bound_ms=max(t_bytes, t_ops),
+                  bound_by="bytes" if t_bytes >= t_ops else "operations")
+        fir[dtype] = st
+        del xt, conv, ref
+        print(f"pfb_fir float32->{str(dtype)[6:]} at M={M} n_vec={n_vec} K={K}: kernel "
+              f"{st['ms']:.4f} ms, plain {st['plain_ms']:.4f} ms, conv1d(groups=M) "
+              f"{st['library_ms']:.4f} ms (input pre-transposed to [2, M, n_vec] outside "
+              f"the timing, {str(dtype)[6:]} operands; max abs diff to plain {lib_err:.3g}), "
+              f"bound {st['bound_ms']:.4f} ms (bytes {t_bytes:.4f}, ops {t_ops:.4f}), "
+              f"launches per process() {wide_launches[dtype]['pfb_fir']}")
     print(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    st = stats[torch.float32]
+    st, sf = stats[torch.float32], fir[torch.float32]
     print(json.dumps({"kernels": [{
         "name": "det_metrics",
         "route": "cuda",
         "source": "lora_tpu_torch/csrc/det_metrics.cu",
         "replaces": "lora_tpu/ops/pallas_kernels.py:85",
-        "launches": launches[torch.float32],
+        "launches": launches[torch.float32]["det_metrics"],
         "max_abs_err": worst_err,
         "ms": st["ms"],
         "plain_ms": st["plain_ms"],
         "bound_ms": st["bound_ms"],
         "bound_by": st["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "pfb_fir",
+        "route": "cuda",
+        "source": "lora_tpu_torch/csrc/pfb_fir.cu",
+        "replaces": "lora_tpu/ops/pallas_kernels.py:275",
+        "launches": wide_launches[torch.float32]["pfb_fir"],
+        "max_abs_err": worst_fir,
+        "ms": sf["ms"],
+        "plain_ms": sf["plain_ms"],
+        "bound_ms": sf["bound_ms"],
+        "bound_by": sf["bound_by"],
+        "library_ms": sf["library_ms"],
     }]}))
-
-
-def call_ms(fn, n: int) -> list:
-    """Host-clock times of ``n`` single calls of ``fn()``, each between two
-    ``torch.cuda.synchronize()``, in ms."""
-    import torch
-
-    out = []
-    for _ in range(n):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        out.append((time.perf_counter() - t0) * 1e3)
-    return out
-
-
-def phase_profile(rx, planes):
-    """Where one ``process()`` call's time goes: device time by kernel name
-    (torch.profiler) against the call's wall time; the difference is the
-    device's idle share. The idle share is taken against the median
-    unprofiled call, since the profiler slows the host's launches."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    for dtype, xd in planes.items():
-        wall_ms = sorted(call_ms(lambda: rx.process(xd), 5))[2]
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            prof_ms = call_ms(lambda: rx.process(xd), 1)[0]
-        # device-side events only: an aten op's entry repeats its kernels' time
-        rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-                for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-        rows.sort(key=lambda r: -r[1])
-        busy = sum(r[1] for r in rows)
-        n_launch = sum(r[2] for r in rows)
-        print(f"profile {str(dtype)[6:]}: wall {wall_ms:.3f} ms (median of 5 "
-              f"unprofiled calls; {prof_ms:.3f} ms profiled), device busy "
-              f"{busy:.3f} ms, idle {100 * (1 - busy / wall_ms):.1f} %, "
-              f"{n_launch} device kernels and copies")
-        for key, ms, count in rows[:12]:
-            print(f"  {ms:8.3f} ms {100 * ms / busy:5.1f} % x{count:<4d} {key[:90]}")
 
 
 def main() -> int:
@@ -392,13 +722,22 @@ def main() -> int:
     device_name, smi_line = phase_device()
     phase_build()
     worst = phase_kernel_vs_plain()
+    worst_fir = phase_pfb_vs_plain()
     cfg, x, expected, pkt_len = bench_block()
     rx, planes, launches = phase_main_path(cfg, x, expected)
     phase_run_small(cfg, x, pkt_len)
-    phase_throughput(rx, planes, "before profile", device_name, smi_line)
-    phase_profile(rx, planes)
-    phase_throughput(rx, planes, "after profile", device_name, smi_line)
-    phase_kernel_times(rx, planes, launches, worst)
+    receivers, xd_wide, wide_launches = phase_wideband()
+    phase_wideband_run_small()
+    for when in ("before profile", "after profile"):
+        phase_throughput("dense_rx_throughput", dense_calls(rx, planes), when,
+                         device_name, smi_line)
+        phase_throughput("wideband_1024ch_throughput", wideband_calls(receivers, xd_wide),
+                         when, device_name, smi_line)
+        if when == "before profile":
+            phase_profile("dense", dense_calls(rx, planes))
+            phase_profile_wideband(receivers, xd_wide)
+    phase_kernel_times(rx, planes, launches, worst, receivers, xd_wide, wide_launches,
+                       worst_fir)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

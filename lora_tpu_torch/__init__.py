@@ -5,8 +5,14 @@ tensor code in torch, and every TPU kernel as a kernel written by hand
 for Hopper. The package imports torch and numpy only. Entry points run on
 the card unless the caller passes ``device="cpu"``.
 
-Ported so far: the dense receiver on the fft engine, with the detection
-metric as a CUDA kernel (``csrc/det_metrics.cu``).
+Ported so far:
+
+- the dense receiver on the fft engine (``DenseReceiver``), with the
+  detection metric as a CUDA kernel (``csrc/det_metrics.cu``), per-channel
+  lanes or one global candidate pool;
+- the wideband PFB receiver (``WidebandReceiver``) and its polyphase
+  channelizer (``PolyphaseChannelizer``), with the branch FIR as a CUDA
+  kernel (``csrc/pfb_fir.cu``).
 """
 
 __version__ = "0.1.0"
@@ -15,9 +21,17 @@ from .config import LoRaConfig  # noqa: F401
 from .io.frames import Frame, PhyHeader  # noqa: F401
 
 
-def __getattr__(name):  # lazy: the receiver pulls in torch
+def __getattr__(name):  # lazy: the receivers pull in torch
     if name == "DenseReceiver":
         from .rx.dense import DenseReceiver
 
         return DenseReceiver
+    if name == "WidebandReceiver":
+        from .wideband import WidebandReceiver
+
+        return WidebandReceiver
+    if name == "PolyphaseChannelizer":
+        from .channelizer import PolyphaseChannelizer
+
+        return PolyphaseChannelizer
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

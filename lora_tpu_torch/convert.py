@@ -8,6 +8,8 @@ installs such a set, as numpy arrays, on a receiver's device: the
 receiver's own (:func:`~lora_tpu_torch.rx.dense.build_tables`), or one
 taken from another implementation of the same receiver, so that the
 port's arithmetic can be checked apart from its table building.
+:func:`load_channelizer` does the same for a polyphase channelizer's
+branch taps and DFT planes.
 """
 
 from __future__ import annotations
@@ -58,3 +60,21 @@ def load_tables(rx, tables: dict) -> None:
     rx._likeness_rows = out["likeness_rows"]
     rx._deint_tables = out["deint_tables"]
     rx._pay_lut = out["pay_lut"]
+
+
+def load_channelizer(pfb, h_poly, dft=None) -> None:
+    """Install the branch taps ``h_poly`` ``[K, M]`` and, optionally, the
+    DFT planes ``dft = (cos, sin)`` ``[M, M]`` (numpy) on the
+    :class:`~lora_tpu_torch.channelizer.PolyphaseChannelizer` ``pfb``, on
+    its device; the device tables built from them are rebuilt at next use.
+    Raises ``ValueError`` for a shape that does not fit ``pfb``."""
+    want = (pfb.K, pfb.M)
+    if tuple(np.shape(h_poly)) != want:
+        raise ValueError(f"h_poly: shape {tuple(np.shape(h_poly))}, expected {want}")
+    if dft is not None:
+        got = [tuple(np.shape(p)) for p in dft]
+        if got != [(pfb.M, pfb.M)] * 2:
+            raise ValueError(f"dft: shapes {got}, expected {[(pfb.M, pfb.M)] * 2}")
+        dft = tuple(np.asarray(p, np.float64) for p in dft)
+    pfb._set_taps(np.asarray(h_poly, np.float32))
+    pfb._dft_src = dft

@@ -29,10 +29,16 @@ def full_f32_matmul():
 
     The fold-DFT and table matmuls of the receiver are held to a float32
     CPU reference; TF32 keeps about three decimal digits and would move
-    bin decisions. The previous setting is restored on exit."""
+    bin decisions. bfloat16 products also keep float32 sums to the end:
+    cuBLAS's reduced-precision (bf16) split-K reduction is off. The
+    previous settings are restored on exit."""
     old = torch.get_float32_matmul_precision()
+    cuda_mm = torch.backends.cuda.matmul
+    old_bf16 = cuda_mm.allow_bf16_reduced_precision_reduction
     torch.set_float32_matmul_precision("highest")
+    cuda_mm.allow_bf16_reduced_precision_reduction = False
     try:
         yield
     finally:
         torch.set_float32_matmul_precision(old)
+        cuda_mm.allow_bf16_reduced_precision_reduction = old_bf16

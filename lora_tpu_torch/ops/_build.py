@@ -15,6 +15,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -44,28 +45,45 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h}.so"
 
 
-def build(name: str):
-    """Compile ``csrc/<name>.cu`` unless its current library exists.
+def build(*names: str) -> dict:
+    """Compile each ``csrc/<name>.cu`` whose current library is missing,
+    one ``nvcc`` per source, all started together.
 
-    Returns ``(library path, compiler log)``; the log is empty for a
-    library that was already built. Raises with the compiler's output if
-    the build fails."""
-    path = library_path(name)
-    if path.exists():
-        return path, ""
+    Returns ``{name: (library path, compiler log)}``; the log is empty for
+    a library that was already built. Each library appears by an atomic
+    rename. Raises with the compiler's output if a build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}")
-    os.replace(tmp, path)  # atomic: a concurrent loader never sees half a file
-    return path, proc.stdout
+    out, running = {}, []
+    for name in names:
+        path = library_path(name)
+        if path.exists():
+            out[name] = (path, "")
+            continue
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        # a file, not a pipe: a pipe could fill while we wait on another nvcc
+        log = tempfile.TemporaryFile("w+", dir=BUILD_DIR)
+        proc = subprocess.Popen(
+            [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cu")],
+            stdout=log, stderr=subprocess.STDOUT, text=True)
+        running.append((name, path, tmp, log, proc))
+    failed = []
+    for name, path, tmp, log, proc in running:
+        rc = proc.wait()
+        with log:
+            log.seek(0)
+            text = log.read()
+        if rc != 0:
+            failed.append(f"nvcc failed for {name}:\n{text}")
+            continue
+        os.replace(tmp, path)  # atomic: a concurrent loader never sees half a file
+        out[name] = (path, text)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return out
 
 
 @functools.cache
 def load(name: str) -> ctypes.CDLL:
     """The built library of ``csrc/<name>.cu``, building it if needed."""
-    path, _ = build(name)
+    path, _ = build(name)[name]
     return ctypes.CDLL(str(path))

@@ -1,11 +1,14 @@
 """Wrappers of the port's hand-written CUDA kernels.
 
-:func:`detection_metrics_kernel` launches ``csrc/det_metrics.cu`` (the
-Hopper counterpart of the TPU kernel ``_det_kernel_pp``) for a CUDA
-tensor, and takes its plain torch version,
-:func:`detection_metrics_planes`, re-exported here, only for a tensor on
-the CPU. On a CUDA tensor it launches the kernel or raises: nothing falls
-back. ``detection_metrics_kernel.launches`` counts the launches.
+- :func:`detection_metrics_kernel` launches ``csrc/det_metrics.cu`` (the
+  Hopper counterpart of the TPU kernel ``_det_kernel_pp``); its plain
+  torch version is :func:`detection_metrics_planes`.
+- :func:`pfb_fir_kernel` launches ``csrc/pfb_fir.cu`` (the counterpart of
+  ``_pfb_fir_kernel``); its plain version is :func:`pfb_fir_planes`.
+
+Each wrapper takes its plain version (re-exported here) only for a tensor
+on the CPU. On a CUDA tensor it launches the kernel or raises: nothing
+falls back. ``<wrapper>.launches`` counts the launches.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import math
 
 import torch
 
+from ..channelizer import pfb_fir_planes  # noqa: F401  (plain version)
 from ..rx.frontend import detection_metrics_planes  # noqa: F401  (plain version)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -81,3 +85,86 @@ def detection_metrics_kernel(xf: torch.Tensor, sps: int):
 
 
 detection_metrics_kernel.launches = 0
+
+
+@functools.cache
+def _pfb_lib():
+    from ._build import load
+
+    lib = load("pfb_fir")
+    lib.pfb_fir_launch.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 6
+        + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    lib.pfb_fir_launch.restype = ctypes.c_int
+    lib.pfb_fir_error_string.argtypes = [ctypes.c_int]
+    lib.pfb_fir_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def pfb_fir_kernel(xf: torch.Tensor, h_poly: torch.Tensor,
+                   out_dtype=torch.float32, out=None) -> torch.Tensor:
+    """Polyphase branch FIR of packed wideband planes ``[2, L]`` (float32
+    or bfloat16) with float32 taps ``[K, M]``: ``[2, n_out, M]`` in
+    ``out_dtype``, as :func:`pfb_fir_planes` computes it (``n_vec = L //
+    M``, ``n_out = n_vec - K + 1``).
+
+    CPU tensors: the plain version. CUDA tensors: the kernel, which reads
+    the planes where they lie (each plane's samples contiguous, any plane
+    stride, so ``xf[:, :n]`` needs no copy) and writes an ``[n_out, 2, M]``
+    buffer, returned as its ``[2, n_out, M]`` view: its rows ``[fr | fi]``
+    are what the DFT product reads. ``out``: an optional contiguous
+    ``[R, 2, M]`` buffer (``R >= n_out``, ``out_dtype``, on the planes'
+    device) whose first ``n_out`` rows take the result (on the CPU by a
+    copy); the others are left as they are. Raises on any other dtype,
+    shape, layout or device, and when ``n_vec < K``.
+    """
+    if not isinstance(xf, torch.Tensor) or not isinstance(h_poly, torch.Tensor):
+        raise TypeError("pfb_fir_kernel takes torch tensors")
+    for what, dt in (("planes", xf.dtype), ("output", out_dtype)):
+        if dt not in _DTYPE_CODE:
+            raise TypeError(f"{what} must be float32 or bfloat16, not {dt}")
+    if h_poly.dtype != torch.float32:
+        raise TypeError(f"taps must be float32, not {h_poly.dtype}")
+    if xf.ndim != 2 or xf.shape[0] != 2:
+        raise ValueError(f"expected packed planes [2, L], got {tuple(xf.shape)}")
+    if h_poly.ndim != 2 or min(h_poly.shape) < 1:
+        raise ValueError(f"expected taps [K, M], got {tuple(h_poly.shape)}")
+    K, M = h_poly.shape
+    n_vec = xf.shape[-1] // M
+    if n_vec < K:
+        raise ValueError(f"need at least K={K} rows of M={M} samples, got L={xf.shape[-1]}")
+    if xf.device != h_poly.device:
+        raise ValueError(f"planes on {xf.device}, taps on {h_poly.device}")
+    n_out = n_vec - K + 1
+    if out is not None and (
+            out.dtype != out_dtype or out.device != xf.device or out.ndim != 3
+            or tuple(out.shape[1:]) != (2, M) or out.shape[0] < n_out
+            or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous [>= {n_out}, 2, {M}] {out_dtype} "
+                         f"buffer on {xf.device}")
+    if xf.device.type == "cpu":
+        res = pfb_fir_planes(xf, h_poly, out_dtype)
+        if out is None:
+            return res
+        out[:n_out].copy_(res.transpose(0, 1))
+        return out[:n_out].transpose(0, 1)
+    if xf.device.type != "cuda":
+        raise ValueError(f"no polyphase FIR kernel for device {xf.device}")
+    if xf.stride(1) != 1 or not h_poly.is_contiguous():
+        raise ValueError("the polyphase FIR kernel reads contiguous plane rows and taps")
+    if out is None:
+        out = torch.empty((n_out, 2, M), dtype=out_dtype, device=xf.device)
+    lib = _pfb_lib()
+    with torch.cuda.device(xf.device):  # the C entry launches on the current device
+        rc = lib.pfb_fir_launch(
+            xf.data_ptr(), h_poly.data_ptr(), out.data_ptr(), M, K, n_vec,
+            xf.stride(0), M, 2 * M, _DTYPE_CODE[xf.dtype], _DTYPE_CODE[out_dtype],
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        msg = lib.pfb_fir_error_string(rc).decode()
+        raise RuntimeError(f"pfb_fir launch failed: {msg} ({rc})")
+    pfb_fir_kernel.launches += 1
+    return out[:n_out].transpose(0, 1)
+
+
+pfb_fir_kernel.launches = 0

@@ -14,6 +14,9 @@ Ported: the explicit-header fft engine with the fold-DFT matrices
 ported yet, and refused with ``NotImplementedError``: the gradient
 engine, implicit headers, ``low_snr``, the fft drift pass (auto-on from
 SF11) and the no-fold fallbacks.
+
+:meth:`DenseReceiver.process_pooled_planes` is the many-channel form: the
+strongest candidates of all channels share one global pool of lanes.
 """
 
 from __future__ import annotations
@@ -36,6 +39,24 @@ from .frontend import candidate_starts, leak_suppression
 
 MAX_PAYLOAD = 260
 FOLD_BUDGET = 16 * 1024 * 1024  # fold-DFT entries (sps * n_bins)
+
+
+class PooledResult(NamedTuple):
+    """Global-candidate-pool result: flat ``[G]`` lanes with their channel.
+
+    For many-channel blocks Phase B capacity scales with the aggregate
+    packet load, not ``channels x per-channel capacity``: candidates from
+    all channels are compacted into one pool of ``G`` decode lanes."""
+
+    valid: torch.Tensor       # bool[G]
+    channel: torch.Tensor     # int32[G] source channel of each lane
+    payload: torch.Tensor     # uint8[G, MAX_PAYLOAD]
+    length: torch.Tensor      # int32[G]
+    hdr: torch.Tensor         # uint8[G, 3]
+    snr: torch.Tensor         # f32[G]
+    start: torch.Tensor       # int32[G] start sample within the channel
+    cfo: torch.Tensor         # f32[G]
+    n_dropped: torch.Tensor   # int32[] candidates past per-channel or pool capacity
 
 
 class DenseResult(NamedTuple):
@@ -347,6 +368,66 @@ class DenseReceiver:
             cfo=cfo.reshape(shape),
             n_dropped=n_dropped,
         )
+
+    def process_pooled_planes(self, xf: torch.Tensor, pool: int,
+                              per_channel: int = 4) -> PooledResult:
+        """Channel planes ``[C, 2, L]`` -> :class:`PooledResult`: Phase A
+        on every channel, then Phase B on the strongest ``pool`` valid
+        (channel, window) candidates across all channels."""
+        if xf.ndim != 3 or xf.shape[1] != 2:
+            raise ValueError(f"expected channel planes [C, 2, L], got {tuple(xf.shape)}")
+        sps = self.sps
+        L = xf.shape[-1]
+        xf = xf.contiguous()
+        with full_f32_matmul():
+            corr, e1, _ = self._metrics_planes(xf)
+            chan, win, lane_valid, snr, n_dropped = self._pool_lanes(
+                e1, corr, per_channel, pool, L)
+            conj_sign = -1.0 if self.cfg.conj else 1.0
+            ok, pay, plen, hdr, cfo = self._decode_candidate_fft(
+                self._candidate_win(xf, chan, win * sps, conj_sign))
+        return PooledResult(
+            valid=ok & lane_valid,
+            channel=chan,
+            payload=pay,
+            length=plen,
+            hdr=hdr,
+            snr=snr,
+            start=win * sps,
+            cfo=cfo,
+            n_dropped=n_dropped,
+        )
+
+    def _pool_lanes(self, e1: torch.Tensor, corr: torch.Tensor,
+                    per_channel: int, pool: int, L: int):
+        """Candidate compaction for the pooled path: the strongest ``pool``
+        valid (channel, window) pairs across all channels, ranked by window
+        energy. Returns ``(chan, win, lane_valid, snr, n_dropped)``: the
+        first four ``[min(pool, C * per_channel)]``, ``n_dropped`` a scalar
+        counting candidates lost to the per-channel capacity plus valid
+        candidates past the pool.
+
+        Ranking by energy, not arrival: the normalized metric is
+        scale-invariant, so a strong packet's PFB-sidelobe leakage raises
+        candidates on idle neighbours too, tens of dB weaker; they must not
+        crowd real packets out. The sort is stable, so ties (every invalid
+        lane scores -1) keep channel-major candidate order."""
+        starts, s_valid, chan_drop = candidate_starts(
+            corr, self.detect_threshold, per_channel, suppress=leak_suppression(e1))
+        starts = starts + 1  # see process_planes
+        s_valid = s_valid & self._tail_ok(starts, L)
+        K = e1.shape[-1]
+        cand_e = torch.take_along_dim(e1, torch.clamp(starts, max=K - 1).long(), dim=-1)
+        flat_valid = s_valid.reshape(-1)
+        score = torch.where(flat_valid, cand_e.reshape(-1), -1.0)
+        order = torch.argsort(-score, stable=True)[:pool]
+        chan = (order // per_channel).to(torch.int32)
+        win = starts.reshape(-1)[order]
+        lane_valid = flat_valid[order]
+        snr = self._snr_from_energy(e1, starts).reshape(-1)[order]
+        pool_drop = torch.clamp(flat_valid.sum(dtype=torch.int32) - pool, min=0)
+        n_dropped = chan_drop.sum(dtype=torch.int32) + pool_drop
+        return chan, win, lane_valid, snr, n_dropped
 
     def process(self, x) -> DenseResult:
         """Run the pipeline. ``x``: host complex IQ ``[..., L]``, host

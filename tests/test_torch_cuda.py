@@ -1,5 +1,5 @@
 """The port on the card: each kernel against its plain torch version, and
-the dense receiver on the card against the port on the CPU.
+the dense and wideband receivers on the card against the port on the CPU.
 
 Every test here needs a CUDA device and skips without one. The file
 imports neither JAX nor the JAX package, so it runs where only torch is
@@ -8,15 +8,19 @@ installed:
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 
 Tolerances: corr atol 2e-5, energies rtol 1e-5 (float32 sums in another
-order); receiver results as in test_torch_dense.py."""
+order); the polyphase FIR float32 within ``1e-6 * sum_j |h_j| * max|x|``
+and bf16 within one bf16 ulp (``2^-7`` of the plain result); receiver
+results as in test_torch_dense.py."""
 
 import numpy as np
 import pytest
 import torch
 
-from lora_tpu_torch import DenseReceiver, LoRaConfig
+from lora_tpu_torch import DenseReceiver, LoRaConfig, WidebandReceiver
+from lora_tpu_torch.channelizer import pfb_channel_freqs
 from lora_tpu_torch.ops.cuda_kernels import (detection_metrics_kernel,
-                                             detection_metrics_planes)
+                                             detection_metrics_planes,
+                                             pfb_fir_kernel, pfb_fir_planes)
 from lora_tpu_torch.ops.xfer import pack_iq
 from lora_tpu_torch.tx.modulator import modulate_frame
 
@@ -102,3 +106,104 @@ def test_receiver_on_card_matches_cpu(cuda_device, dtype):
                                rtol=1e-5)
     np.testing.assert_allclose(got.cfo.cpu().numpy()[valid], want.cfo.numpy()[valid],
                                atol=1.0)
+
+
+# M, n_vec, K, tail samples: the bench branch count, ragged branch tiles
+# (8, 1000), n_vec off the 16 grid, K = 1, 16 and 37 (three tap passes),
+# one output row, L not a multiple of M
+FIR_GEOMS = [(1024, 200, 10, 0), (8, 700, 10, 0), (1000, 41, 10, 0), (128, 533, 10, 0),
+             (256, 90, 1, 0), (256, 90, 16, 0), (64, 100, 37, 0), (512, 10, 10, 0),
+             (1024, 50, 10, 333)]
+
+
+@pytest.mark.parametrize("out", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("in_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,n_vec,K,tail", FIR_GEOMS)
+def test_pfb_fir_kernel_matches_plain(cuda_device, M, n_vec, K, tail, in_dtype, out):
+    rng = np.random.default_rng(M + n_vec + K)
+    x = torch.from_numpy(rng.normal(size=(2, n_vec * M + tail)).astype(np.float32))
+    h = torch.from_numpy(0.1 * rng.normal(size=(K, M)).astype(np.float32))
+    x, h = x.to(cuda_device).to(in_dtype), h.to(cuda_device)
+    before = pfb_fir_kernel.launches
+    got = pfb_fir_kernel(x, h, out)
+    torch.cuda.synchronize()
+    assert pfb_fir_kernel.launches == before + 1
+    want = pfb_fir_planes(x, h, out)
+    assert got.shape == want.shape == (2, n_vec - K + 1, M) and got.dtype == out
+    diff = (got.float() - want.float()).abs()
+    if out == torch.float32:
+        bound = 1e-6 * float(h.abs().sum(0).max()) * float(x.float().abs().max())
+        assert float(diff.max()) <= bound
+    else:
+        assert bool((diff <= 2.0 ** -7 * want.float().abs()).all())
+
+
+def test_pfb_fir_kernel_reads_a_strided_view(cuda_device):
+    """Planes cut from a longer buffer keep its row stride: no copy."""
+    x = torch.randn((2, 5000), device=cuda_device)[:, :4100]
+    h = torch.randn((10, 100), device=cuda_device)
+    torch.testing.assert_close(pfb_fir_kernel(x, h), pfb_fir_planes(x, h), rtol=0, atol=1e-5)
+
+
+def test_pfb_fir_kernel_writes_into_a_padded_buffer(cuda_device):
+    x = torch.randn((2, 64 * 50), device=cuda_device)
+    h = torch.randn((10, 64), device=cuda_device)
+    buf = torch.full((48, 2, 64), 7.0, device=cuda_device)
+    got = pfb_fir_kernel(x, h, out=buf)
+    assert got.data_ptr() == buf.data_ptr()
+    torch.testing.assert_close(got, pfb_fir_planes(x, h), rtol=0, atol=0)
+    assert bool((buf[41:] == 7.0).all())
+
+
+@pytest.mark.parametrize("case", ["fp16", "three-planes", "strided-rows", "taps-on-cpu",
+                                  "f64-taps"])
+def test_pfb_fir_kernel_refuses(cuda_device, case):
+    x = torch.zeros((2, 4096), device=cuda_device)
+    h = torch.ones((4, 64), device=cuda_device)
+    if case == "fp16":
+        x = x.half()
+    elif case == "three-planes":
+        x = torch.zeros((3, 4096), device=cuda_device)
+    elif case == "strided-rows":
+        x = torch.zeros((2, 8192), device=cuda_device)[:, ::2]
+    elif case == "taps-on-cpu":
+        h = h.cpu()
+    else:
+        h = h.double()
+    with pytest.raises((TypeError, ValueError)):
+        pfb_fir_kernel(x, h)
+
+
+@pytest.mark.parametrize("pool", [None, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wideband_on_card_matches_cpu(cuda_device, pool, dtype):
+    M = 8
+    cfg = LoRaConfig(sf=7, cr=4, samp_rate=250e3, crc=True)
+    wide_rate = M * cfg.samp_rate
+    wide_cfg = LoRaConfig(sf=7, cr=4, samp_rate=wide_rate, crc=True)
+    sps_w = wide_cfg.samples_per_symbol
+    rng = np.random.default_rng(2)
+    x = 1e-3 * (rng.normal(size=(160 * sps_w, 2)) @ [1, 1j])
+    freqs = pfb_channel_freqs(wide_rate, M)
+    for c in (1, 3, 6):
+        pkt = modulate_frame(wide_cfg, b"\xde\xad\xbe\xef" + bytes([c]), snr_db=None)
+        pos = (8 + 3 * c) * sps_w
+        t = np.arange(len(pkt)) + pos
+        x[pos:pos + len(pkt)] += pkt * np.exp(2j * np.pi * freqs[c] / wide_rate * t)
+    x = x.astype(np.complex64)
+    kw = dict(pool=pool, plane_dtype=dtype, max_candidates=2, max_symbols=24,
+              sfd_search=12, demod_method="fft")
+    before = (pfb_fir_kernel.launches, detection_metrics_kernel.launches)
+    got = WidebandReceiver(cfg, M, device=cuda_device, **kw).run(x)
+    assert (pfb_fir_kernel.launches, detection_metrics_kernel.launches) == \
+        (before[0] + 1, before[1] + 1)
+    want = WidebandReceiver(cfg, M, device="cpu", **kw).run(x)
+    assert sorted(f.channel for f in want) == [1, 3, 6]
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert (g.channel, g.sample_index, g.phy_header.to_bytes(), g.payload,
+                g.tap_header.frequency) == (w.channel, w.sample_index,
+                                            w.phy_header.to_bytes(), w.payload,
+                                            w.tap_header.frequency)
+        assert g.snr == pytest.approx(w.snr, rel=1e-4)
+        assert g.cfo == pytest.approx(w.cfo, abs=1.0)
