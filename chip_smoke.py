@@ -22,12 +22,18 @@ Phases, each of which passes or exits non-zero:
    and at M = 4096 (the two-stage DFT), with the decode gates and the
    kernels' launch counts; then ``run()`` on a small capture, held
    against the CPU;
-6. each path's throughput (best of rounds of back-to-back calls), beside
+6. the multi-SF gateway at full width (``bench.py --gateway 256``: 256
+   channels x SF7-12, bf16 planes) on a capture built on the card, with
+   the decode gate and the launch counts of the shared detection (one
+   multi-lag kernel) and of the per-SF detection (six detection
+   kernels), which must decode the same lanes; then ``run()`` on a small
+   capture, held against the CPU;
+7. each path's throughput (best of rounds of back-to-back calls), beside
    single synchronised calls, the host's enqueue time, the host
    synchronisations in a call and the allocator's device allocations;
-7. where one call's device time goes (torch.profiler), and the device's
-   idle share; then phase 6 again, after the profiler;
-8. each kernel's time beside its bound, its plain version's time and a
+8. where one call's device time goes (torch.profiler), and the device's
+   idle share; then phase 7 again, after the profiler;
+9. each kernel's time beside its bound, its plain version's time and a
    library call's time where one computes the same function.
 
 The line before the last is the ``kernels`` JSON line; the last line is
@@ -52,6 +58,12 @@ TOL_ENER_RTOL = 1e-5     # energies: float32 sums of up to 32768 squares
 # reordering of K float32 sums)
 TOL_FIR_F32 = 1e-6
 TOL_FIR_BF16 = 2.0 ** -7  # bf16 out: one bf16 ulp of the plain result (relative)
+# multi-lag rows: energies relative; each lag product absolute, times
+# sqrt(e_r * e_{r+l}) (its Cauchy-Schwarz scale): float32 sums in another order
+TOL_LAG_E_RTOL = 1e-5
+TOL_LAG_Q = 1e-5
+GATEWAY_SFS = (7, 8, 9, 10, 11, 12)
+GATEWAY_LAGS = (1, 2, 4, 8, 16, 32)   # each SF's symbol in SF7 symbols
 DEADBEEF = bytes.fromhex("deadbeef")
 
 
@@ -101,7 +113,8 @@ def counts() -> dict:
     from lora_tpu_torch.ops import cuda_kernels as ck
 
     return {"det_metrics": ck.detection_metrics_kernel.launches,
-            "pfb_fir": ck.pfb_fir_kernel.launches}
+            "pfb_fir": ck.pfb_fir_kernel.launches,
+            "lag_rows": ck.lag_rows_kernel.launches}
 
 
 def zero_counts() -> None:
@@ -109,13 +122,14 @@ def zero_counts() -> None:
 
     ck.detection_metrics_kernel.launches = 0
     ck.pfb_fir_kernel.launches = 0
+    ck.lag_rows_kernel.launches = 0
 
 
 def phase_build():
     from lora_tpu_torch.ops._build import build
 
     t0 = time.perf_counter()
-    built = build("det_metrics", "pfb_fir")
+    built = build("det_metrics", "pfb_fir", "lag_rows")
     print(f"build: {', '.join(built)} (one nvcc each, started together) in "
           f"{time.perf_counter() - t0:.1f} s")
     for name, (_, log) in built.items():
@@ -212,6 +226,83 @@ def phase_pfb_vs_plain() -> float:
                     print(f"{label}: max abs err {err:.3g}, {over} outputs past one bf16 ulp")
                     check(over == 0, f"{label}: {over} outputs past one bf16 ulp")
                 del got, ref, diff
+    return worst
+
+
+def lag_rows_errors(got, ref, lags):
+    """Largest absolute error of the kernel's rows, the largest energy
+    error relative to the energy, and the largest lag-product error over
+    its Cauchy-Schwarz scale ``sqrt(e_r * e_{r+l})``."""
+    import torch
+
+    (e_g, q_g), (e_r, q_r) = got, ref
+    err_abs = float((e_g - e_r).abs().max())
+    err_e = float(((e_g - e_r).abs() / e_r.abs().clamp(min=1e-30)).max())
+    err_q = 0.0
+    for lag in lags:
+        nxt = torch.nn.functional.pad(e_r, (0, lag))[..., lag:lag + e_r.shape[-1]]
+        scale = torch.sqrt(e_r * nxt).clamp(min=1e-30)
+        for g, r in zip(q_g[lag], q_r[lag]):
+            d = (g - r).abs()
+            err_abs = max(err_abs, float(d.max()))
+            err_q = max(err_q, float((d / scale).max()))
+    return err_abs, err_e, err_q
+
+
+def phase_lag_vs_plain() -> float:
+    """K3 against its plain version on the card, float32 and bf16. Returns
+    the largest absolute error of any output."""
+    import torch
+
+    from lora_tpu_torch.ops.cuda_kernels import lag_rows_kernel, lag_rows_planes
+    from lora_tpu_torch.rx.frontend import detection_metrics_planes, metrics_from_lag_rows
+
+    gen = torch.Generator(device="cuda").manual_seed(777)
+    # (C, sps_min, rows, tail samples, lags): the gateway's planes; SF7-12
+    # at 1 Msps with a ragged row count; a lag set that is not powers of
+    # two; sps off the 128 grid (100, 1000); lags at and past R; one run of
+    # rows, and one ragged past a run; lags past the staged halo (read from
+    # memory); twelve lags (two register chunks)
+    geoms = [(256, 256, 1759, 247, GATEWAY_LAGS), (3, 128, 37 * 32 + 5, 17, GATEWAY_LAGS),
+             (3, 128, 111, 17, (1, 3)), (2, 100, 300, 0, (1, 2, 4)),
+             (2, 1000, 50, 7, (1, 2, 4, 8)), (2, 256, 20, 0, (1, 2, 20, 64)),
+             (1, 128, 20, 0, GATEWAY_LAGS), (1, 128, 40, 0, GATEWAY_LAGS),
+             (2, 128, 150, 5, (1, 5, 70, 100)), (2, 64, 50, 0, tuple(range(1, 13)))]
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for C, sps, rows, tail, lags in geoms:
+            xf = torch.randn((C, 2, rows * sps + tail), generator=gen, device="cuda").to(dtype)
+            before = lag_rows_kernel.launches
+            got = lag_rows_kernel(xf, sps, lags)
+            torch.cuda.synchronize()
+            check(lag_rows_kernel.launches == before + 1, "the lag_rows launch count did not rise")
+            ref = lag_rows_planes(xf, sps, lags)
+            outs = [got[0]] + [q for lag in lags for q in got[1][lag]]
+            for g in outs:
+                check(tuple(g.shape) == (C, rows) and g.dtype == torch.float32,
+                      f"lag_rows: {tuple(g.shape)} {g.dtype}, expected {(C, rows)} float32")
+                check(bool(torch.isfinite(g).all()), "lag_rows: non-finite output")
+            err_abs, err_e, err_q = lag_rows_errors(got, ref, lags)
+            label = f"lag_rows {str(dtype)[6:]} C={C} sps={sps} R={rows} tail={tail} lags={lags}"
+            msg = (f"{label}: max abs err {err_abs:.3g}, energy max rel err {err_e:.3g}, "
+                   f"lag product max err / sqrt(e e) {err_q:.3g}")
+            if C == 256:   # the gateway: each SF's metrics from the rows, against K1's plain version
+                err_c = 0.0
+                for m in lags:
+                    corr, e1, e2 = metrics_from_lag_rows(got[0], *got[1][m], m)
+                    want = detection_metrics_planes(xf, m * sps)
+                    err_c = max(err_c, float((corr - want[0]).abs().max()))
+                    for a, b in ((e1, want[1]), (e2, want[2])):
+                        rel = float(((a - b).abs() / b.abs().clamp(min=1e-30)).max())
+                        check(rel <= TOL_ENER_RTOL, f"{label}: SF energy error {rel}")
+                msg += f"; per-SF corr max abs err {err_c:.3g}"
+                check(err_c <= TOL_CORR_ATOL, f"{label}: per-SF corr error {err_c}")
+            print(msg)
+            check(err_e <= TOL_LAG_E_RTOL, f"{label}: energy error {err_e} > {TOL_LAG_E_RTOL}")
+            check(err_q <= TOL_LAG_Q, f"{label}: lag product error {err_q} > {TOL_LAG_Q}")
+            worst = max(worst, err_abs)
+            del xf, got, ref
+    torch.cuda.empty_cache()
     return worst
 
 
@@ -386,7 +477,7 @@ def run_wideband(wr, xd, label: str):
     torch.cuda.synchronize()
     n = counts()
     print(f"wideband {label}: launches {n}")
-    check(n == {"det_metrics": 1, "pfb_fir": 1},
+    check(n == {"det_metrics": 1, "pfb_fir": 1, "lag_rows": 0},
           f"{label}: expected one det_metrics and one pfb_fir launch, got {n}")
     return res, n
 
@@ -470,6 +561,172 @@ def phase_wideband_run_small():
           "equal to the CPU's")
 
 
+def gateway_capture(M: int, max_pkt_samples: int, seed: int = 3):
+    """``bench.py --gateway``'s capture (``bench.py:94-180``), built on the
+    card: channels of CR4/8 at 250 ksps, ``L = M * (max_pkt_samples + 6 *
+    8192)`` wideband samples (the largest SF's packet region and six of its
+    symbols) of complex noise (sigma 1e-3 a part, a seeded
+    ``torch.Generator``), and one ``deadbeef`` packet on every
+    ``M // 24``-th channel, SFs 7-12 round-robin, each starting two
+    symbols of its own SF in. Each SF's packet is modulated once (the
+    port's modulator, at the wideband rate) and upconverted to each of its
+    channels with a float64 carrier phase reduced mod 1 cycle. Returns
+    ``(planes [2, L] float32, {(sf, channel)})``."""
+    import math
+
+    import torch
+
+    from lora_tpu_torch import LoRaConfig
+    from lora_tpu_torch.channelizer import pfb_channel_freqs
+    from lora_tpu_torch.tx.modulator import modulate_frame
+
+    wide_rate = M * 250e3
+    L = M * (max_pkt_samples + 6 * 8192)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.view_as_complex(1e-3 * torch.randn((L, 2), generator=gen, device="cuda"))
+    freqs = pfb_channel_freqs(wide_rate, M)
+    active = list(range(0, M, max(1, M // 24)))
+    expect = set()
+    for k, sf in enumerate(GATEWAY_SFS):
+        chans = active[k::len(GATEWAY_SFS)]
+        wcfg = LoRaConfig(sf=sf, cr=4, samp_rate=wide_rate, crc=True)
+        pkt = torch.from_numpy(modulate_frame(wcfg, DEADBEEF, snr_db=None)).to("cuda")
+        pkt = pkt.to(torch.complex128)
+        n = pkt.shape[0]
+        pos = 2 * wcfg.samples_per_symbol
+        check(pos + n <= L, f"SF{sf}: the packet does not fit the capture")
+        t = torch.arange(pos, pos + n, dtype=torch.float64, device="cuda")
+        for c in chans:
+            cycles = torch.remainder(t * (freqs[c] / wide_rate), 1.0)
+            x[pos:pos + n] += (pkt * torch.polar(torch.ones_like(cycles), 2.0 * math.pi * cycles)
+                               ).to(torch.complex64)
+            expect.add((sf, c))
+    return torch.stack([x.real, x.imag]).contiguous(), expect
+
+
+def gateway_gate(results, expect, label: str) -> dict:
+    """Every placement gives ``de ad be ef`` at its own SF and no valid
+    lane of any SF gives a wrong payload or decodes where no packet of its
+    SF was sent. Returns ``{sf: (valid, channel, start, payload)}`` on the
+    host, for comparing two runs."""
+    got, bad, lanes = set(), 0, {}
+    for sf, res in results.items():
+        valid = res.valid.cpu().numpy()
+        chan = res.channel.cpu().numpy()[valid]
+        pay = res.payload.cpu().numpy()[valid]
+        plen = res.length.cpu().numpy()[valid]
+        good = (pay[:, :4] == list(DEADBEEF)).all(axis=-1) & (plen >= 4)
+        for c, ok in zip(chan, good):
+            if ok and (sf, int(c)) in expect:
+                got.add((sf, int(c)))
+            else:
+                bad += 1
+        for name in ("snr", "cfo"):
+            check(bool(getattr(res, name)[res.valid].isfinite().all()),
+                  f"{label} SF{sf}: non-finite {name}")
+        lanes[sf] = tuple(getattr(res, f).cpu().numpy()
+                          for f in ("valid", "channel", "start", "payload"))
+        print(f"gateway {label} SF{sf}: {int(valid.sum())} valid lanes, "
+              f"{len({c for s, c in got if s == sf})}/{len({c for s, c in expect if s == sf})} "
+              f"placements, n_dropped {int(res.n_dropped)}")
+    print(f"gateway {label}: {len(got)}/{len(expect)} placements decode de ad be ef at "
+          f"their own SF, {bad} wrong or misplaced lanes")
+    check(got == expect, f"{label}: placements {sorted(expect - got)[:8]} missing")
+    check(bad == 0, f"{label}: {bad} wrong or misplaced lanes")
+    return lanes
+
+
+def run_gateway(gw, xd, label: str, want: dict):
+    """One ``process()`` call with every count zeroed just before it and
+    read just after; it must launch exactly the kernels of ``want``."""
+    import torch
+
+    torch.cuda.synchronize()
+    zero_counts()
+    res = gw.process(xd)
+    torch.cuda.synchronize()
+    n = counts()
+    print(f"gateway {label}: launches {n}")
+    check(n == want, f"{label}: expected launches {want}, got {n}")
+    return res, n
+
+
+def phase_gateway():
+    """The gateway path at full width: ``bench.py --gateway 256`` with the
+    shared detection, then the per-SF detection on the same capture,
+    which must decode the same lanes. Returns the receiver, its capture
+    and the shared call's launch counts."""
+    import numpy as np
+    import torch
+
+    from lora_tpu_torch import LoRaConfig, MultiSFWidebandReceiver
+
+    cfg = LoRaConfig(sf=7, cr=4, samp_rate=250e3, crc=True)
+    gw = MultiSFWidebandReceiver(cfg, 256, sfs=GATEWAY_SFS, pool=48, max_candidates=2,
+                                 max_symbols=24, sfd_search=12, demod_method="fft",
+                                 plane_dtype=torch.bfloat16)
+    check(gw.device.type == "cuda", "the gateway did not default to the card")
+    xd, expect = gateway_capture(gw.M, gw.max_pkt_samples)
+    check(xd.shape[-1] == 115_343_360, f"gateway capture length {xd.shape[-1]}")
+    check(all(not gw.rxs[sf].fft_drift_pass for sf in (7, 8, 9, 10))
+          and gw.rxs[11].fft_drift_pass and gw.rxs[12].fft_drift_pass
+          and gw.rxs[12]._fold_mat is None and gw.rxs[11]._fold_mat is not None,
+          "the gateway's SF receivers: drift pass from SF11, no fold matrices at SF12")
+    res, launches = run_gateway(gw, xd, "shared detection",
+                                {"det_metrics": 0, "pfb_fir": 1, "lag_rows": 1})
+    check(sorted(res) == list(GATEWAY_SFS), f"gateway result keys {sorted(res)}")
+    shared = gateway_gate(res, expect, "shared detection")
+    gw.shared_detection = False
+    res, _ = run_gateway(gw, xd, "per-SF detection",
+                         {"det_metrics": len(GATEWAY_SFS), "pfb_fir": 1, "lag_rows": 0})
+    per_sf = gateway_gate(res, expect, "per-SF detection")
+    gw.shared_detection = True
+    for sf in GATEWAY_SFS:
+        check(all(np.array_equal(a, b) for a, b in zip(shared[sf], per_sf[sf])),
+              f"SF{sf}: the per-SF detection decoded other lanes than the shared one")
+    print("gateway: the per-SF detection decodes the same lanes as the shared one")
+    del res
+    return gw, xd, launches
+
+
+def phase_gateway_run_small():
+    """``run()`` on a small gateway capture (tests/test_multi_sf.py:42-69:
+    M = 8, SF7-9, one packet at each), on the card and on the CPU: the
+    frames must agree field by field."""
+    import numpy as np
+
+    from lora_tpu_torch import LoRaConfig, MultiSFWidebandReceiver
+    from lora_tpu_torch.channelizer import pfb_channel_freqs
+    from lora_tpu_torch.tx.modulator import modulate_frame
+
+    M = 8
+    cfg = LoRaConfig(sf=7, cr=1, samp_rate=250e3, crc=True)
+    wide_rate = M * cfg.samp_rate
+    freqs = pfb_channel_freqs(wide_rate, M)
+    placements = [(7, 2), (8, 5), (9, 6)]
+    kw = dict(sfs=(7, 8, 9), pool=8, max_candidates=2, max_symbols=16, sfd_search=10,
+              demod_method="fft")
+    gws = {dev: MultiSFWidebandReceiver(cfg, M, device=dev, **kw) for dev in ("cuda", "cpu")}
+    sps9 = 4 * cfg.samples_per_symbol
+    L = (32 * sps9 + 2 * gws["cpu"].max_pkt_samples) * M
+    rng = np.random.default_rng(7)
+    x = 1e-4 * (rng.normal(size=(L, 2)) @ [1, 1j])
+    for sf, c in placements:
+        wcfg = LoRaConfig(sf=sf, cr=1, samp_rate=wide_rate, crc=True)
+        pkt = modulate_frame(wcfg, DEADBEEF + bytes([c]), snr_db=None)
+        pos = 2 * wcfg.samples_per_symbol
+        t = np.arange(pos, pos + len(pkt))
+        x[pos:pos + len(pkt)] += pkt * np.exp(2j * np.pi * freqs[c] / wide_rate * t)
+    x = x.astype(np.complex64)
+    frames = {dev: gw.run(x) for dev, gw in gws.items()}
+    check(sorted((f.tap_header.sf, f.channel) for f in frames["cuda"]) == placements,
+          f"gateway run(): {[(f.tap_header.sf, f.channel) for f in frames['cuda']]}")
+    same_frames(frames["cuda"], frames["cpu"], "gateway run()")
+    check([f.tap_header.sf for f in frames["cuda"]] == [f.tap_header.sf for f in frames["cpu"]],
+          "gateway run(): SFs differ from the CPU's")
+    print("gateway run(): 3 frames at SF7, 8 and 9 on an 8-channel capture, equal to the CPU's")
+
+
 def host_syncs(fn) -> list:
     """Host-device synchronisations inside ``fn()``, as torch's sync debug
     mode reports them: one ``file:line: message`` each. The mode's own
@@ -546,6 +803,10 @@ def wideband_calls(receivers, xd) -> dict:
     return {str(d)[6:]: (wr.process, xd, xd.shape[-1]) for d, wr in receivers.items()}
 
 
+def gateway_calls(gw, xd) -> dict:
+    return {"bfloat16": (gw.process, xd, xd.shape[-1])}
+
+
 def call_ms(fn, n: int) -> list:
     """Host-clock times of ``n`` single calls of ``fn()``, each between two
     ``torch.cuda.synchronize()``, in ms."""
@@ -561,21 +822,29 @@ def call_ms(fn, n: int) -> list:
     return out
 
 
-def device_rows(fn):
+def device_rows(fn, tries: int = 3):
     """Device time of one ``fn()`` call by kernel name (torch.profiler):
-    ``(profiled call ms, [(name, ms, count)] largest first)``. Device-side
-    events only: an aten op's entry repeats its kernels' time."""
+    ``(profiled call ms, [(name, ms, count)] largest first, [events a
+    try])``. Device-side events only: an aten op's entry repeats its
+    kernels' time. The profiler can drop a call's device events (seen on
+    the H100: a kernel of the call missing), so the call is profiled
+    ``tries`` times and the try with the most device events is kept."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        prof_ms = call_ms(fn, 1)[0]
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    rows.sort(key=lambda r: -r[1])
-    return prof_ms, rows
+    best, counts = None, []
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            prof_ms = call_ms(fn, 1)[0]
+        rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        rows.sort(key=lambda r: -r[1])
+        counts.append(sum(r[2] for r in rows))
+        if best is None or counts[-1] > sum(r[2] for r in best[1]):
+            best = (prof_ms, rows)
+    return best[0], best[1], counts
 
 
 def is_gemm(name: str) -> bool:
@@ -592,13 +861,14 @@ def phase_profile(label, calls):
     out = []
     for dtype, (fn, xd, _) in calls.items():
         wall_ms = sorted(call_ms(lambda: fn(xd), 5))[2]
-        prof_ms, rows = device_rows(lambda: fn(xd))
+        prof_ms, rows, tries = device_rows(lambda: fn(xd))
         busy = sum(r[1] for r in rows)
         n_launch = sum(r[2] for r in rows)
         print(f"profile {label} {dtype}: wall {wall_ms:.3f} ms (median of 5 "
               f"unprofiled calls; {prof_ms:.3f} ms profiled), device busy "
               f"{busy:.3f} ms, idle {100 * (1 - busy / wall_ms):.1f} %, "
-              f"{n_launch} device kernels and copies")
+              f"{n_launch} device kernels and copies (device events in the "
+              f"profiled tries: {tries})")
         for key, ms, count in rows[:12]:
             print(f"  {ms:8.3f} ms {100 * ms / busy:5.1f} % x{count:<4d} {key[:90]}")
         out.append((rows, busy))
@@ -612,7 +882,7 @@ def phase_profile_wideband(receivers, xd):
     for dtype, wr in receivers.items():
         dtype = str(dtype)[6:]
         [(rows, busy)] = phase_profile("wideband", {dtype: (wr.process, xd, None)})
-        _, prow = device_rows(lambda: wr.pfb.planes(xd, out_dtype=wr.plane_dtype))
+        _, prow, _ = device_rows(lambda: wr.pfb.planes(xd, out_dtype=wr.plane_dtype))
         k4 = sum(ms for k, ms, _ in rows if "pfb_fir" in k)
         k1 = sum(ms for k, ms, _ in rows if "det_metrics" in k)
         dft = sum(ms for k, ms, _ in prow if is_gemm(k))
@@ -622,12 +892,32 @@ def phase_profile_wideband(receivers, xd):
               f"Phase B + decode tail {busy - pfb - k1:.3f} ms, of {busy:.3f} ms busy")
 
 
+def phase_profile_gateway(gw, xd):
+    """The gateway call's device time in the layers of the path: K4, the
+    DFT GEMM and the rest of the channelizer (the channelizer profiled
+    alone), K3, and the rest (the planes' one copy, the per-SF metrics,
+    candidates, Phase B of six SFs, decode tails)."""
+    [(rows, busy)] = phase_profile("gateway", gateway_calls(gw, xd))
+    _, prow, _ = device_rows(lambda: gw.pfb.planes(xd, out_dtype=gw.plane_dtype))
+    k4 = sum(ms for k, ms, _ in rows if "pfb_fir" in k)
+    k3 = sum(ms for k, ms, _ in rows if "lag_rows" in k)
+    dft = sum(ms for k, ms, _ in prow if is_gemm(k))
+    pfb = sum(ms for _, ms, _ in prow)
+    fft = sum(ms for k, ms, _ in rows if "fft" in k.lower())
+    print(f"profile gateway bfloat16 by layer: K4 {k4:.3f} ms, DFT GEMM {dft:.3f} ms, rest of "
+          f"the channelizer {pfb - k4 - dft:.3f} ms, K3 {k3:.3f} ms, planes' copy + per-SF "
+          f"metrics + candidates + Phase B + decode tails {busy - pfb - k3:.3f} ms (of which FFT "
+          f"kernels "
+          f"{fft:.3f} ms), of {busy:.3f} ms busy")
+
+
 def phase_kernel_times(rx, planes, launches, worst_err, receivers, xd_wide,
-                       wide_launches, worst_fir):
+                       wide_launches, worst_fir, gw, xd_gw, gw_launches, worst_lag):
     import torch
 
     from lora_tpu_torch.ops.cuda_kernels import (detection_metrics_kernel,
                                                  detection_metrics_planes,
+                                                 lag_rows_kernel, lag_rows_planes,
                                                  pfb_fir_kernel, pfb_fir_planes)
 
     sps = rx.sps
@@ -685,6 +975,30 @@ def phase_kernel_times(rx, planes, launches, worst_err, receivers, xd_wide,
               f"the timing, {str(dtype)[6:]} operands; max abs diff to plain {lib_err:.3g}), "
               f"bound {st['bound_ms']:.4f} ms (bytes {t_bytes:.4f}, ops {t_ops:.4f}), "
               f"launches per process() {wide_launches[dtype]['pfb_fir']}")
+    # K3 at the gateway's shape: the bf16 channel planes, rows of one SF7
+    # symbol, every SF's lag
+    cp = gw.pfb.planes(xd_gw, out_dtype=gw.plane_dtype).contiguous()
+    C, _, L = cp.shape
+    sps = min(r.sps for r in gw.rxs.values())
+    R = L // sps
+    # bytes: planes read once, the rows written once; operations: 4 flops a
+    # complex sample for the energy, 8 for each lag's product where the
+    # partner row exists
+    t_bytes = (C * 2 * L * cp.element_size() + C * (1 + 2 * len(GATEWAY_LAGS)) * R * 4) \
+        / HBM_BYTES_PER_S * 1e3
+    t_ops = (4 * C * R * sps + sum(8 * C * max(R - m, 0) * sps for m in GATEWAY_LAGS)) \
+        / F32_FLOPS_PER_S * 1e3
+    lag = dict(ms=cuda_ms(lambda: lag_rows_kernel(cp, sps, GATEWAY_LAGS), 20),
+               plain_ms=cuda_ms(lambda: lag_rows_planes(cp, sps, GATEWAY_LAGS), 3),
+               bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations")
+    six_k1 = cuda_ms(lambda: [detection_metrics_kernel(cp, m * sps) for m in GATEWAY_LAGS], 10)
+    print(f"lag_rows bfloat16 at {list(cp.shape)} sps={sps} lags={GATEWAY_LAGS}: kernel "
+          f"{lag['ms']:.4f} ms, plain {lag['plain_ms']:.4f} ms, bound {lag['bound_ms']:.4f} ms "
+          f"(bytes {t_bytes:.4f}, ops {t_ops:.4f}), launches per process() "
+          f"{gw_launches['lag_rows']}; the six per-SF det_metrics launches it replaces "
+          f"{six_k1:.4f} ms")
+    del cp
     print(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     st, sf = stats[torch.float32], fir[torch.float32]
     print(json.dumps({"kernels": [{
@@ -711,6 +1025,18 @@ def phase_kernel_times(rx, planes, launches, worst_err, receivers, xd_wide,
         "bound_ms": sf["bound_ms"],
         "bound_by": sf["bound_by"],
         "library_ms": sf["library_ms"],
+    }, {
+        "name": "lag_rows",
+        "route": "cuda",
+        "source": "lora_tpu_torch/csrc/lag_rows.cu",
+        "replaces": "lora_tpu/ops/pallas_kernels.py:149",
+        "launches": gw_launches["lag_rows"],
+        "max_abs_err": worst_lag,
+        "ms": lag["ms"],
+        "plain_ms": lag["plain_ms"],
+        "bound_ms": lag["bound_ms"],
+        "bound_by": lag["bound_by"],
+        "library_ms": None,
     }]}))
 
 
@@ -723,21 +1049,27 @@ def main() -> int:
     phase_build()
     worst = phase_kernel_vs_plain()
     worst_fir = phase_pfb_vs_plain()
+    worst_lag = phase_lag_vs_plain()
     cfg, x, expected, pkt_len = bench_block()
     rx, planes, launches = phase_main_path(cfg, x, expected)
     phase_run_small(cfg, x, pkt_len)
     receivers, xd_wide, wide_launches = phase_wideband()
     phase_wideband_run_small()
+    gw, xd_gw, gw_launches = phase_gateway()
+    phase_gateway_run_small()
     for when in ("before profile", "after profile"):
         phase_throughput("dense_rx_throughput", dense_calls(rx, planes), when,
                          device_name, smi_line)
         phase_throughput("wideband_1024ch_throughput", wideband_calls(receivers, xd_wide),
                          when, device_name, smi_line)
+        phase_throughput("gateway_256ch_6sf_throughput", gateway_calls(gw, xd_gw), when,
+                         device_name, smi_line)
         if when == "before profile":
             phase_profile("dense", dense_calls(rx, planes))
             phase_profile_wideband(receivers, xd_wide)
+            phase_profile_gateway(gw, xd_gw)
     phase_kernel_times(rx, planes, launches, worst, receivers, xd_wide, wide_launches,
-                       worst_fir)
+                       worst_fir, gw, xd_gw, gw_launches, worst_lag)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

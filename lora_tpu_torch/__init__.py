@@ -9,10 +9,13 @@ Ported so far:
 
 - the dense receiver on the fft engine (``DenseReceiver``), with the
   detection metric as a CUDA kernel (``csrc/det_metrics.cu``), per-channel
-  lanes or one global candidate pool;
+  lanes or one global candidate pool, the fft drift pass and the no-fold
+  demod of SF12 at 250 ksps;
 - the wideband PFB receiver (``WidebandReceiver``) and its polyphase
   channelizer (``PolyphaseChannelizer``), with the branch FIR as a CUDA
-  kernel (``csrc/pfb_fir.cu``).
+  kernel (``csrc/pfb_fir.cu``);
+- the multi-SF gateway (``MultiSFWidebandReceiver``), with every SF's
+  detection from one multi-lag CUDA kernel (``csrc/lag_rows.cu``).
 """
 
 __version__ = "0.1.0"
@@ -30,6 +33,10 @@ def __getattr__(name):  # lazy: the receivers pull in torch
         from .wideband import WidebandReceiver
 
         return WidebandReceiver
+    if name == "MultiSFWidebandReceiver":
+        from .wideband import MultiSFWidebandReceiver
+
+        return MultiSFWidebandReceiver
     if name == "PolyphaseChannelizer":
         from .channelizer import PolyphaseChannelizer
 

@@ -19,6 +19,9 @@ import torch
 
 TABLE_KEYS = ("up", "down", "up_ifreq", "down_ifreq", "up_ifreq_v",
               "fold_mat", "fold_up", "likeness_rows", "deint_tables", "pay_lut")
+# the tables a receiver leaves out above the fold budget (sps * n_bins >
+# 16M entries): ``None`` in place of the arrays
+OPTIONAL_KEYS = ("fold_mat", "fold_up", "likeness_rows")
 
 
 def _expected_shapes(rx) -> dict:
@@ -38,14 +41,18 @@ def _expected_shapes(rx) -> dict:
 
 def load_tables(rx, tables: dict) -> None:
     """Install ``tables`` (numpy arrays, tuples of arrays for the
-    multi-part tables) on ``rx``'s device. Raises ``KeyError`` for a
-    missing table and ``ValueError`` for a shape that does not fit the
-    receiver's geometry."""
+    multi-part tables; ``None`` for a table of ``OPTIONAL_KEYS``, which the
+    receiver then does without) on ``rx``'s device. Raises ``KeyError``
+    for a missing table and ``ValueError`` for a shape that does not fit
+    the receiver's geometry."""
     shapes = _expected_shapes(rx)
     dev = rx.device
     out = {}
     for key in TABLE_KEYS:
         val = tables[key]
+        if val is None and key in OPTIONAL_KEYS:
+            out[key] = None
+            continue
         parts = list(val) if isinstance(val, (tuple, list)) else [val]
         got = [tuple(np.shape(p)) for p in parts]
         if got != shapes[key]:

@@ -5,6 +5,8 @@
   torch version is :func:`detection_metrics_planes`.
 - :func:`pfb_fir_kernel` launches ``csrc/pfb_fir.cu`` (the counterpart of
   ``_pfb_fir_kernel``); its plain version is :func:`pfb_fir_planes`.
+- :func:`lag_rows_kernel` launches ``csrc/lag_rows.cu`` (the counterpart
+  of ``_lag_rows_kernel``); its plain version is :func:`lag_rows_planes`.
 
 Each wrapper takes its plain version (re-exported here) only for a tensor
 on the CPU. On a CUDA tensor it launches the kernel or raises: nothing
@@ -20,7 +22,8 @@ import math
 import torch
 
 from ..channelizer import pfb_fir_planes  # noqa: F401  (plain version)
-from ..rx.frontend import detection_metrics_planes  # noqa: F401  (plain version)
+from ..rx.frontend import check_lags
+from ..rx.frontend import detection_metrics_planes, lag_rows_planes  # noqa: F401  (plain versions)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -168,3 +171,73 @@ def pfb_fir_kernel(xf: torch.Tensor, h_poly: torch.Tensor,
 
 
 pfb_fir_kernel.launches = 0
+
+
+@functools.cache
+def _lag_lib():
+    from ._build import load
+
+    lib = load("lag_rows")
+    lib.lag_rows_launch.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 3
+        + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    lib.lag_rows_launch.restype = ctypes.c_int
+    lib.lag_rows_error_string.argtypes = [ctypes.c_int]
+    lib.lag_rows_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.cache
+def _lag_table(lags: tuple, device: torch.device) -> torch.Tensor:
+    """The lags as an int32 tensor on ``device``, copied there once."""
+    return torch.tensor(lags, dtype=torch.int32, device=device)
+
+
+def lag_rows_kernel(xf: torch.Tensor, sps_min: int, lags):
+    """Fine-row energies and lag products of packed IQ ``[..., 2, L]``
+    (float32 or bfloat16): ``(e, {lag: (q_re, q_im)})``, each float32
+    ``[..., R]`` with ``R = L // sps_min``, as :func:`lag_rows_planes`
+    computes them (``q`` zero for rows ``r >= R - lag``).
+
+    CPU tensor: the plain version. CUDA tensor: the kernel, one launch for
+    every lag; the planes must be contiguous. Raises on any other dtype,
+    layout or device, on a lag below 1, and when the block holds no row.
+    """
+    if not isinstance(xf, torch.Tensor):
+        raise TypeError("lag_rows_kernel takes a torch tensor")
+    if xf.dtype not in _DTYPE_CODE:
+        raise TypeError(f"packed planes must be float32 or bfloat16, not {xf.dtype}")
+    if xf.ndim < 2 or xf.shape[-2] != 2:
+        raise ValueError(f"expected packed planes [..., 2, L], got {tuple(xf.shape)}")
+    lags = check_lags(lags)
+    sps_min = int(sps_min)
+    L = xf.shape[-1]
+    if sps_min < 1 or L // sps_min < 1:
+        raise ValueError(f"need at least one row of {sps_min} samples, got L={L}")
+    if xf.device.type == "cpu":
+        return lag_rows_planes(xf, sps_min, lags)
+    if xf.device.type != "cuda":
+        raise ValueError(f"no lag-rows kernel for device {xf.device}")
+    if not xf.is_contiguous():
+        raise ValueError("the lag-rows kernel reads contiguous planes")
+    lead = xf.shape[:-2]
+    C = math.prod(lead)
+    R = L // sps_min
+    S = 1 + 2 * len(lags)
+    out = torch.empty((C, S, R), dtype=torch.float32, device=xf.device)
+    lib = _lag_lib()
+    with torch.cuda.device(xf.device):  # the C entry launches on the current device
+        rc = lib.lag_rows_launch(
+            xf.data_ptr(), _lag_table(lags, xf.device).data_ptr(), out.data_ptr(),
+            C, L, sps_min, len(lags), lags[-1], _DTYPE_CODE[xf.dtype],
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        msg = lib.lag_rows_error_string(rc).decode()
+        raise RuntimeError(f"lag_rows launch failed: {msg} ({rc})")
+    lag_rows_kernel.launches += 1
+    out = out.reshape(lead + (S, R))
+    return out[..., 0, :], {lag: (out[..., 1 + 2 * s, :], out[..., 2 + 2 * s, :])
+                            for s, lag in enumerate(lags)}
+
+
+lag_rows_kernel.launches = 0

@@ -1,13 +1,16 @@
-"""Fold-DFT demodulation ops of the dense fft engine.
+"""Demodulation ops of the dense fft engine.
 
 Torch forms of the per-window DSP that the dense receiver's Phase B runs
-when the fold-DFT matrices fit (reference ``lib/decoder_impl.cc``):
-preamble CFO, parabolic upchirp sync, the SFD Pearson
-(``detect_downchirp`` :283-298,385-390), the folded dechirp argmax
-(``get_shift_fft`` :430-464) and the chirp CFO/STO separation. Every
-function takes complex64 windows ``[..., n]`` and is batched over the
-leading axes. The tables (:func:`make_fold_dft`,
-:func:`make_likeness_rows`) are built in numpy, in float64, and cast once.
+(reference ``lib/decoder_impl.cc``): preamble CFO, upchirp sync, the SFD
+Pearson (``detect_downchirp`` :283-298,385-390), the folded dechirp
+argmax (``get_shift_fft`` :430-464), its fractional tone position, the
+upchirp likeness and the chirp CFO/STO separation. Each has a fold-DFT
+form (one matmul through the tables of :func:`make_fold_dft` and
+:func:`make_likeness_rows`, built in numpy, in float64, and cast once)
+and, for geometries whose tables would not fit, a no-fold form: the
+dechirp FFT (``torch.fft.fft``) and a slice of the tiled upchirp ifreq.
+Every function takes complex64 windows ``[..., n]`` and is batched over
+the leading axes.
 
 Tie-breaking follows the reference's strict ``>`` scans: ``torch.argmax``
 returns the first maximum. ``torch.round`` rounds half to even.
@@ -59,17 +62,31 @@ def upchirp_sync_parab(windows2: torch.Tensor, fold_mat, sps: int,
     argmax. The repeated preamble dechirps to one continuous tone whose
     fractional bin gives the boundary to ~``decim/5`` samples, inside the
     fft demod's ``+-decim/2`` alignment tolerance. int32 ``[...]``."""
-    m = _fold_power(windows2[..., :sps], fold_mat)
-    n = m.shape[-1]
-    j = torch.argmax(m, dim=-1)
-    m0 = _take(m, j)
-    ml = _take(m, (j - 1) % n)
-    mr = _take(m, (j + 1) % n)
-    denom = ml - 2.0 * m0 + mr
-    p = torch.where(denom.abs() > 1e-20, 0.5 * (ml - mr) / denom,
-                    torch.zeros_like(denom))
+    j, p = _parab_frac(_fold_power(windows2[..., :sps], fold_mat))
     d0 = sps - (j.to(torch.float32) + p) * decim
     return torch.clamp(torch.round(d0), 0, sps + 2 * decim - 1).to(torch.int32)
+
+
+def upchirp_sync_coarse_fine(windows2: torch.Tensor, downchirp: torch.Tensor,
+                             upchirp_ifreq: torch.Tensor, sps: int, n_bins: int,
+                             decim: int) -> torch.Tensor:
+    """Upchirp boundary offset in ``[0, sps + 2*decim)`` without fold
+    matrices: the dechirp FFT's tone bin ``b`` gives the boundary to
+    ``decim/2`` (``d0 = sps - b*decim``), and the best of ``span = 4*decim
+    + 1`` ifreq cross-correlations against the ideal upchirp around
+    ``d0 - 2*decim`` gives it exactly. The lag rows of every lane are one
+    gather from a sliding view of the ifreq. int32 ``[...]``."""
+    b = fft_shift_idx(windows2[..., :sps], downchirp, n_bins, sps)
+    d0 = sps - b * decim
+    span = 4 * decim + 1
+    ref = upchirp_ifreq[:sps - 1]
+    ifr = instantaneous_frequency(windows2)                     # [..., 2*sps]
+    base0 = torch.clamp(d0 - 2 * decim, 0, 2 * sps - (span + sps - 2)).long()
+    lag_rows = ifr.unfold(-1, sps - 1, 1)                       # [..., sps + 2, sps - 1]
+    idx = base0[..., None] + torch.arange(span, device=base0.device)
+    rows = torch.take_along_dim(lag_rows, idx[..., None], dim=-2)  # [..., span, sps - 1]
+    c = rows @ ref
+    return (base0 + torch.argmax(c, dim=-1)).to(torch.int32)
 
 
 def fft_shift_idx_mm(windows: torch.Tensor, fold_mat) -> torch.Tensor:
@@ -78,15 +95,78 @@ def fft_shift_idx_mm(windows: torch.Tensor, fold_mat) -> torch.Tensor:
     return torch.argmax(_fold_power(windows, fold_mat), dim=-1).to(torch.int32)
 
 
+def dechirp_fft_mag(windows: torch.Tensor, downchirp: torch.Tensor,
+                    n_bins: int, sps: int) -> torch.Tensor:
+    """Folded dechirp FFT magnitudes ``[..., n_bins]`` of ``[..., sps]``
+    windows: FFT bins ``[0, (n_bins+1)//2)`` and ``[sps - n_bins//2,
+    sps)``, with bin ``n_bins//2`` added into folded bin ``n_bins//2``
+    (the reference's ``d_tmp[N/2] += d_fft[N/2]``, :443-456)."""
+    f = torch.fft.fft(windows * downchirp, dim=-1)
+    folded = torch.cat([f[..., :(n_bins + 1) // 2], f[..., sps - n_bins // 2:]], dim=-1)
+    folded[..., n_bins // 2] += f[..., n_bins // 2]
+    return folded.abs()
+
+
+def fft_shift_idx(windows: torch.Tensor, downchirp: torch.Tensor,
+                  n_bins: int, sps: int) -> torch.Tensor:
+    """Folded dechirp FFT argmax bin (reference ``get_shift_fft``), the
+    no-fold form of :func:`fft_shift_idx_mm`. int32 ``[...]``."""
+    return torch.argmax(dechirp_fft_mag(windows, downchirp, n_bins, sps),
+                        dim=-1).to(torch.int32)
+
+
+def _parab_frac(m: torch.Tensor):
+    """Argmax of ``m`` ``[..., n]`` (int32) and the fractional offset of
+    the three-point parabolic vertex around it, in (-0.5, 0.5) (float32)."""
+    n = m.shape[-1]
+    j = torch.argmax(m, dim=-1)
+    m0 = _take(m, j)
+    ml = _take(m, (j - 1) % n)
+    mr = _take(m, (j + 1) % n)
+    denom = ml - 2.0 * m0 + mr
+    p = torch.where(denom.abs() > 1e-20, 0.5 * (ml - mr) / denom,
+                    torch.zeros_like(denom))
+    return j.to(torch.int32), p.to(torch.float32)
+
+
+def fft_shift_frac(windows: torch.Tensor, downchirp: torch.Tensor, n_bins: int,
+                   sps: int, fold_mat=None):
+    """Dechirped tone bin (int32) and fractional offset (float32) of each
+    window. The vertex is taken of the folded power with a fold matrix
+    and of the folded magnitude without one, as the reference receiver
+    does. The fraction is data-independent (data shifts are whole bins):
+    its symbol-to-symbol slope is the sample-clock slip."""
+    if fold_mat is not None:
+        m = _fold_power(windows, fold_mat)
+    else:
+        m = dechirp_fft_mag(windows, downchirp, n_bins, sps)
+    return _parab_frac(m)
+
+
+def median(d: torch.Tensor) -> torch.Tensor:
+    """Median over the last axis, the mean of the two middle values for
+    an even count (``torch.median`` returns the lower one)."""
+    s = torch.sort(d, dim=-1).values
+    n = d.shape[-1]
+    return (s[..., (n - 1) // 2] + s[..., n // 2]) * 0.5
+
+
 def chirp_coarse_cfo(up_window: torch.Tensor, sfd_window: torch.Tensor,
                      n_bins: int, sps: int, samp_rate: float,
-                     fold_down, fold_up) -> torch.Tensor:
+                     fold_down, fold_up, upchirp=None,
+                     downchirp=None) -> torch.Tensor:
     """Coarse full-range CFO by chirp CFO/STO separation: a carrier offset
     moves the dechirped tone of an upchirp and of a downchirp the same
     way, a timing offset moves them oppositely, so the mean of the two
-    signed bins is the integer-bin CFO. Hz, float32 ``[...]``."""
-    b_up = fft_shift_idx_mm(up_window, fold_down)
-    b_dn = fft_shift_idx_mm(sfd_window, fold_up)
+    signed bins is the integer-bin CFO. Through the fold matrices when
+    both are given, else through the dechirp FFT with ``downchirp`` and
+    ``upchirp``. Hz, float32 ``[...]``."""
+    if fold_down is not None and fold_up is not None:
+        b_up = fft_shift_idx_mm(up_window, fold_down)
+        b_dn = fft_shift_idx_mm(sfd_window, fold_up)
+    else:
+        b_up = fft_shift_idx(up_window, downchirp, n_bins, sps)
+        b_dn = fft_shift_idx(sfd_window, upchirp, n_bins, sps)
     s_up = torch.where(b_up > n_bins // 2, b_up - n_bins, b_up)
     s_dn = torch.where(b_dn > n_bins // 2, b_dn - n_bins, b_dn)
     return ((s_up + s_dn).to(torch.float32) / 2.0) * (samp_rate / sps)
@@ -143,6 +223,29 @@ def upchirp_likeness_rows(window: torch.Tensor, bin_idx: torch.Tensor,
     xn = torch.sqrt((x * x).sum(dim=-1))
     ok = xn > 0
     c = torch.where(ok, num * ref_inv / torch.where(ok, xn, torch.ones_like(xn)),
+                    torch.zeros_like(num))
+    return c.to(torch.float32)
+
+
+def upchirp_likeness(window: torch.Tensor, bin_idx: torch.Tensor,
+                     upchirp_ifreq_tiled: torch.Tensor, sps: int,
+                     decim: int) -> torch.Tensor:
+    """:func:`upchirp_likeness_rows` without the precomputed rows: the
+    reference row of each window is the slice of the tiled upchirp ifreq
+    at ``(bin + 1)*decim + sps`` (its start clamped into the table, as a
+    dynamic slice is), taken by one gather from a sliding view of the
+    table. float32 ``[...]``."""
+    n = sps - 1
+    ifr = instantaneous_frequency(window)[..., :n]
+    base = torch.clamp((bin_idx.long() + 1) * decim + sps, 0,
+                       upchirp_ifreq_tiled.shape[-1] - n)
+    ref = upchirp_ifreq_tiled.unfold(0, n, 1)[base]           # [..., n]
+    x = ifr - ifr.mean(dim=-1, keepdim=True)
+    y = ref - ref.mean(dim=-1, keepdim=True)
+    num = (x * y).sum(dim=-1)
+    den = torch.sqrt((x * x).sum(dim=-1) * (y * y).sum(dim=-1))
+    ok = den > 0
+    c = torch.where(ok, num / torch.where(ok, den, torch.ones_like(den)),
                     torch.zeros_like(num))
     return c.to(torch.float32)
 

@@ -9,14 +9,17 @@ is one batched gather from the source planes, and the fold-DFT matmuls,
 Pearson correlations and the integer decode tail run batched over the
 lanes. No ``pkt_samples`` region is materialised per lane.
 
-Ported: the explicit-header fft engine with the fold-DFT matrices
-(``sps * n_bins <= 16M``), optional header-checksum verification. Not
-ported yet, and refused with ``NotImplementedError``: the gradient
-engine, implicit headers, ``low_snr``, the fft drift pass (auto-on from
-SF11) and the no-fold fallbacks.
+Ported: the explicit-header fft engine, with the fold-DFT matrices where
+they fit (``sps * n_bins <= 16M``) and the dechirp FFT where they do not
+(SF12 at 250 ksps); the fft drift pass (auto-on from SF11); optional
+header-checksum verification. Not ported yet, and refused with
+``NotImplementedError``: the gradient engine, implicit headers and
+``low_snr``.
 
 :meth:`DenseReceiver.process_pooled_planes` is the many-channel form: the
-strongest candidates of all channels share one global pool of lanes.
+strongest candidates of all channels share one global pool of lanes. It
+takes precomputed detection metrics, which the multi-SF gateway derives
+for every SF from one shared pass over the channel planes.
 """
 
 from __future__ import annotations
@@ -105,21 +108,25 @@ def build_deint_tables(config: LoRaConfig, max_symbols: int):
 def build_tables(config: LoRaConfig, max_symbols: int) -> dict:
     """Host (numpy) tables of a receiver, in the layout
     :func:`lora_tpu_torch.convert.load_tables` installs. Phases are built
-    in float64 and cast once."""
+    in float64 and cast once. Above ``FOLD_BUDGET`` entries the fold-DFT
+    matrices and the likeness rows are ``None``: Phase B then runs the
+    dechirp FFT and table slices instead (SF12 at 250 ksps would otherwise
+    hold 1 GB of fold planes)."""
     sps = config.samples_per_symbol
     n_bins = config.number_of_bins
     up, down = build_ideal_chirps(config)
     up_ifreq_v = tiled_upchirp_ifreq(config)
+    fold = sps * n_bins <= FOLD_BUDGET
     return dict(
         up=up,
         down=down,
         up_ifreq=instantaneous_frequency_np(up),
         down_ifreq=instantaneous_frequency_np(down),
         up_ifreq_v=up_ifreq_v,
-        fold_mat=demod.make_fold_dft(down, sps, n_bins),
-        fold_up=demod.make_fold_dft(up, sps, n_bins),
-        likeness_rows=demod.make_likeness_rows(up_ifreq_v, sps,
-                                               config.decim_factor, n_bins),
+        fold_mat=demod.make_fold_dft(down, sps, n_bins) if fold else None,
+        fold_up=demod.make_fold_dft(up, sps, n_bins) if fold else None,
+        likeness_rows=(demod.make_likeness_rows(up_ifreq_v, sps, config.decim_factor,
+                                                n_bins) if fold else None),
         deint_tables=build_deint_tables(config, max_symbols),
         pay_lut=dec.make_payload_nibble_lut(codeword_capacity(config, max_symbols)),
     )
@@ -129,9 +136,12 @@ class DenseReceiver:
     """Block-based multi-packet receiver for one static config.
 
     ``max_symbols`` bounds the payload symbols per packet (the header
-    block's 8 symbols are separate). ``device``: where the tables live and
-    the block is processed; ``None`` is the card, and there is no quiet
-    fallback to the CPU when it is missing.
+    block's 8 symbols are separate). ``fft_drift_pass``: correct the
+    static window grid for sample-clock drift (``None``: on from SF11,
+    where a 30 ppm clock outruns the grid's ``decim/2`` tolerance within a
+    packet). ``device``: where the tables live and the block is processed;
+    ``None`` is the card, and there is no quiet fallback to the CPU when
+    it is missing.
     """
 
     def __init__(
@@ -153,17 +163,13 @@ class DenseReceiver:
         if demod_method != "fft":
             raise NotImplementedError(
                 f"demod_method={demod_method!r}: only the fft engine is ported")
-        if fft_drift_pass is None:
-            fft_drift_pass = config.sf >= 11
-        if fft_drift_pass:
-            raise NotImplementedError("the fft drift pass (SF >= 11) is not ported")
         if config.implicit:
             raise NotImplementedError("implicit headers are not ported")
         if low_snr:
             raise NotImplementedError("low_snr mode is not ported")
-        if config.samples_per_symbol * config.number_of_bins > FOLD_BUDGET:
-            raise NotImplementedError(
-                "sps * n_bins > 16M needs the no-fold demod, not ported")
+        if fft_drift_pass is None:
+            fft_drift_pass = config.sf >= 11
+        self.fft_drift_pass = bool(fft_drift_pass)
         self.cfg = config
         self.P = int(max_candidates)
         self.S = int(max_symbols)
@@ -235,11 +241,22 @@ class DenseReceiver:
         return win
 
     def _decode_candidate_fft(self, win):
-        """Phase B for every lane: parabolic fold-DFT sync, then the static
-        SFD search and symbol demod."""
-        i0 = demod.upchirp_sync_parab(win(0, 2 * self.sps), self._fold_mat,
-                                      self.sps, self.decim)
+        """Phase B for every lane: the parabolic fold-DFT sync (without
+        fold matrices, the dechirp-FFT coarse sync and an ifreq refine),
+        then the static SFD search and symbol demod."""
+        w2 = win(0, 2 * self.sps)
+        if self._fold_mat is not None:
+            i0 = demod.upchirp_sync_parab(w2, self._fold_mat, self.sps, self.decim)
+        else:
+            i0 = demod.upchirp_sync_coarse_fine(w2, self._down, self._up_ifreq, self.sps,
+                                                self.n_bins, self.decim)
         return self._decode_candidate_static(win, i0)
+
+    def _shift_idx(self, windows: torch.Tensor) -> torch.Tensor:
+        """Folded dechirp argmax bin: the fold-DFT matmul, or the FFT."""
+        if self._fold_mat is not None:
+            return demod.fft_shift_idx_mm(windows, self._fold_mat)
+        return demod.fft_shift_idx(windows, self._down, self.n_bins, self.sps)
 
     def _decode_candidate_static(self, win, i0: torch.Tensor):
         """SFD search over ``F`` static symbol offsets from the sync point,
@@ -260,12 +277,16 @@ class DenseReceiver:
         # neither SFD nor upchirp is a miss, except <= 2 recognised
         # sync-word symbols (clearly shifted vs the first window and
         # upchirp-like by the likeness gate)
-        sbins = demod.fft_shift_idx_mm(sfd_wins, self._fold_mat)
+        sbins = self._shift_idx(sfd_wins)
         rel = (sbins - sbins[:, :1]) % nb
         dist = torch.minimum(rel, nb - rel)
         # fft bins read gradient + 1: the likeness lag uses sbins - 1
-        likeness = demod.upchirp_likeness_rows(sfd_wins, sbins - 1,
-                                               self._likeness_rows)
+        if self._likeness_rows is not None:
+            likeness = demod.upchirp_likeness_rows(sfd_wins, sbins - 1,
+                                                   self._likeness_rows)
+        else:
+            likeness = demod.upchirp_likeness(sfd_wins, sbins - 1, self._up_ifreq_v,
+                                              sps, self.decim)
         sync_like = (dist > 3) & (likeness > demod.SYNC_LIKENESS_MIN)
         recognised = sync_like & (torch.cumsum(sync_like.to(torch.int32), -1) <= 2)
         before = torch.arange(F, device=dev) < first[:, None]
@@ -276,14 +297,17 @@ class DenseReceiver:
         lanes = torch.arange(N, device=dev)
         coarse = demod.chirp_coarse_cfo(
             sfd_wins[:, 0], sfd_wins[lanes, first.long()], nb, sps,
-            cfg.samp_rate, self._fold_mat, self._fold_up)
+            cfg.samp_rate, self._fold_mat, self._fold_up, self._up, self._down)
         cfo = demod.combine_cfo(coarse, frac_cfo, sps, cfg.samp_rate)
 
         # data starts 2.25 symbols after the SFD start (reference :816,:822)
         p_data = p_found + 2 * sps + cfg.delay_after_sync
         nsym = 8 + self.S
         wins = win(p_data, nsym * sps).reshape(N, nsym, sps)
-        b_full = demod.fft_shift_idx_mm(wins, self._fold_mat)
+        if self.fft_drift_pass:
+            b_full = self._drift_corrected_bins(wins, first)
+        else:
+            b_full = self._shift_idx(wins)
         b_full = (b_full - 1) % nb  # fft -> gradient bin convention
         reduced = torch.arange(nsym, device=dev) < 8
         if cfg.reduced_rate:
@@ -293,6 +317,29 @@ class DenseReceiver:
         words = b ^ (b >> 1)
         ok, pay, plen, hdr = self._finish_decode(words, sfd_ok)
         return ok, pay, plen, hdr, cfo
+
+    def _drift_corrected_bins(self, wins: torch.Tensor, first: torch.Tensor):
+        """Symbol bins ``[N, nsym]`` corrected for sample-clock drift in
+        tone-position space. A window late by ``l`` samples reads its tone
+        ``l/decim`` bins high, so the continuous tone position (bin +
+        parabolic fraction) less the lateness in bins is the bin a
+        re-read window would give. The slip is the median of the first 13
+        symbol-to-symbol fraction steps (all in-packet for the shortest
+        explicit packet), clamped to 0.3 bins a symbol; lateness counts
+        from the sync point, across the SFD search and the 2.25-symbol
+        consume."""
+        nsym = wins.shape[1]
+        b_raw, frac = demod.fft_shift_frac(wins, self._down, self.n_bins, self.sps,
+                                           self._fold_mat)
+        n_est = min(13, nsym)
+        d = frac[:, 1:n_est] - frac[:, :n_est - 1]
+        d = (d + 0.5) % 1.0 - 0.5
+        slip = torch.clamp(demod.median(d), -0.3, 0.3)           # bins / symbol
+        lateness = (first.to(torch.float32)[:, None] + 2.25
+                    + torch.arange(nsym, dtype=torch.float32, device=wins.device)
+                    ) * slip[:, None]
+        return torch.round(b_raw.to(torch.float32) + frac - lateness).to(torch.int32) \
+            % self.n_bins
 
     def _finish_decode(self, words: torch.Tensor, sfd_ok: torch.Tensor):
         """Header parse + payload decode from words ``[N, 8+S]``."""
@@ -370,17 +417,21 @@ class DenseReceiver:
         )
 
     def process_pooled_planes(self, xf: torch.Tensor, pool: int,
-                              per_channel: int = 4) -> PooledResult:
+                              per_channel: int = 4, metrics=None) -> PooledResult:
         """Channel planes ``[C, 2, L]`` -> :class:`PooledResult`: Phase A
         on every channel, then Phase B on the strongest ``pool`` valid
-        (channel, window) candidates across all channels."""
+        (channel, window) candidates across all channels. ``metrics``:
+        optional precomputed ``(corr, e1, e2)`` ``[C, K]`` of this SF's
+        window grid, in place of Phase A."""
         if xf.ndim != 3 or xf.shape[1] != 2:
             raise ValueError(f"expected channel planes [C, 2, L], got {tuple(xf.shape)}")
         sps = self.sps
         L = xf.shape[-1]
         xf = xf.contiguous()
         with full_f32_matmul():
-            corr, e1, _ = self._metrics_planes(xf)
+            if metrics is None:
+                metrics = self._metrics_planes(xf)
+            corr, e1, _ = metrics
             chan, win, lane_valid, snr, n_dropped = self._pool_lanes(
                 e1, corr, per_channel, pool, L)
             conj_sign = -1.0 if self.cfg.conj else 1.0

@@ -7,6 +7,13 @@ batched pass. :func:`detection_metrics_planes` is the plain torch version
 of the hand-written detection kernel
 (:func:`lora_tpu_torch.ops.cuda_kernels.detection_metrics_kernel`): the
 CPU path and the yardstick the kernel is held to on the card.
+
+Several spreading factors share one pass: every SF's symbol is a whole
+number of the smallest SF's, so :func:`lag_rows_planes` (the plain
+version of the multi-lag kernel
+:func:`~lora_tpu_torch.ops.cuda_kernels.lag_rows_kernel`) computes
+fine-row energies and lag products once, and
+:func:`metrics_from_lag_rows` sums them into each SF's metrics.
 """
 
 from __future__ import annotations
@@ -45,6 +52,86 @@ def detection_metrics_planes(xf: torch.Tensor, sps: int):
     corr = torch.where(ok, mag / torch.where(ok, denom, torch.ones_like(denom)),
                        torch.zeros_like(mag))
     return corr, e1, e2
+
+
+def check_lags(lags) -> tuple:
+    """Sorted unique lags as ints; ``ValueError`` for none or one below 1."""
+    lags = tuple(sorted({int(lag) for lag in lags}))
+    if not lags or lags[0] < 1:
+        raise ValueError(f"lags must be integers >= 1, got {lags}")
+    return lags
+
+
+def lag_rows_planes(xf: torch.Tensor, sps_min: int, lags):
+    """Fine-row energies and lag products of packed IQ ``[..., 2, L]``
+    (float32 or bfloat16; sums in float32).
+
+    Row ``r`` is the ``sps_min`` samples from ``r * sps_min``, ``R = L //
+    sps_min`` rows. Returns ``(e, {lag: (q_re, q_im)})``, each float32
+    ``[..., R]``: ``e[r] = sum_t |x_r[t]|^2`` and ``q[r] = sum_t x_r[t] *
+    conj(x_{r+lag}[t])``, zero for ``r >= R - lag`` (so all zeros for a lag
+    ``>= R``). An SF whose symbol is ``m`` rows has its adjacent-window dot
+    in the sums of ``m`` consecutive ``q_m`` rows."""
+    lags = check_lags(lags)
+    L = xf.shape[-1]
+    R = L // sps_min
+    lead = xf.shape[:-2]
+    xf = xf.to(torch.float32)
+    r = xf[..., 0, :R * sps_min].reshape(lead + (R, sps_min))
+    i = xf[..., 1, :R * sps_min].reshape(lead + (R, sps_min))
+    e = (r * r + i * i).sum(-1)
+    qs = {}
+    for lag in lags:
+        if lag >= R:
+            z = torch.zeros(lead + (R,), dtype=torch.float32, device=xf.device)
+            qs[lag] = (z, z)
+            continue
+        q_re = (r[..., :-lag, :] * r[..., lag:, :] + i[..., :-lag, :] * i[..., lag:, :]).sum(-1)
+        q_im = (i[..., :-lag, :] * r[..., lag:, :] - r[..., :-lag, :] * i[..., lag:, :]).sum(-1)
+        qs[lag] = (torch.nn.functional.pad(q_re, (0, lag)),
+                   torch.nn.functional.pad(q_im, (0, lag)))
+    return e, qs
+
+
+def metrics_from_lag_rows(e: torch.Tensor, q_re: torch.Tensor, q_im: torch.Tensor,
+                          m: int):
+    """One SF's ``(corr, e1, e2)`` from the fine-row substrate, ``m`` rows
+    a symbol: the metrics :func:`detection_metrics_planes` gives at
+    ``sps = m * sps_min`` (the same window grid, from sample 0)."""
+    R = e.shape[-1]
+    Kw = R // m
+    K = Kw - 1
+    lead = e.shape[:-1]
+    if K < 1:
+        z = torch.zeros(lead + (0,), dtype=torch.float32, device=e.device)
+        return z, z, z
+    e_win = e[..., :Kw * m].reshape(lead + (Kw, m)).sum(-1)
+    dot_re = q_re[..., :Kw * m].reshape(lead + (Kw, m)).sum(-1)
+    dot_im = q_im[..., :Kw * m].reshape(lead + (Kw, m)).sum(-1)
+    e1 = e_win[..., :K]
+    e2 = e_win[..., 1:K + 1]
+    mag = torch.sqrt(dot_re[..., :K] ** 2 + dot_im[..., :K] ** 2)
+    denom = torch.sqrt(e1 * e2)
+    ok = denom > 0
+    corr = torch.where(ok, mag / torch.where(ok, denom, torch.ones_like(denom)),
+                       torch.zeros_like(mag))
+    return corr.to(torch.float32), e1, e2
+
+
+def multi_sf_detection_metrics(xf: torch.Tensor, sps_by_sf: dict) -> dict:
+    """``{sf: (corr, e1, e2)}`` for every SF of ``sps_by_sf`` (``{sf:
+    samples_per_symbol}``) from one pass over packed IQ ``[..., 2, L]``:
+    the multi-lag kernel on a CUDA tensor, its plain version on a CPU one.
+    Raises ``ValueError`` unless every sps is a whole multiple of the
+    smallest."""
+    from ..ops.cuda_kernels import lag_rows_kernel
+
+    sps_min = min(sps_by_sf.values())
+    if any(sps % sps_min for sps in sps_by_sf.values()):
+        raise ValueError("multi-SF metrics need commensurate symbol lengths")
+    ms = {sf: sps // sps_min for sf, sps in sps_by_sf.items()}
+    e, qs = lag_rows_kernel(xf, sps_min, set(ms.values()))
+    return {sf: metrics_from_lag_rows(e, qs[m][0], qs[m][1], m) for sf, m in ms.items()}
 
 
 def leak_suppression(e1: torch.Tensor) -> torch.Tensor:

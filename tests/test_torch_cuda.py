@@ -1,5 +1,6 @@
 """The port on the card: each kernel against its plain torch version, and
-the dense and wideband receivers on the card against the port on the CPU.
+the dense, wideband and multi-SF gateway receivers on the card against the
+port on the CPU.
 
 Every test here needs a CUDA device and skips without one. The file
 imports neither JAX nor the JAX package, so it runs where only torch is
@@ -9,17 +10,20 @@ installed:
 
 Tolerances: corr atol 2e-5, energies rtol 1e-5 (float32 sums in another
 order); the polyphase FIR float32 within ``1e-6 * sum_j |h_j| * max|x|``
-and bf16 within one bf16 ulp (``2^-7`` of the plain result); receiver
-results as in test_torch_dense.py."""
+and bf16 within one bf16 ulp (``2^-7`` of the plain result); the
+multi-lag rows' energies rtol 1e-5 and each lag product within ``1e-5 *
+sqrt(e_r * e_{r+l})``; receiver results as in test_torch_dense.py."""
 
 import numpy as np
 import pytest
 import torch
 
-from lora_tpu_torch import DenseReceiver, LoRaConfig, WidebandReceiver
+from lora_tpu_torch import (DenseReceiver, LoRaConfig, MultiSFWidebandReceiver,
+                            WidebandReceiver)
 from lora_tpu_torch.channelizer import pfb_channel_freqs
 from lora_tpu_torch.ops.cuda_kernels import (detection_metrics_kernel,
                                              detection_metrics_planes,
+                                             lag_rows_kernel, lag_rows_planes,
                                              pfb_fir_kernel, pfb_fir_planes)
 from lora_tpu_torch.ops.xfer import pack_iq
 from lora_tpu_torch.tx.modulator import modulate_frame
@@ -205,5 +209,102 @@ def test_wideband_on_card_matches_cpu(cuda_device, pool, dtype):
                 g.tap_header.frequency) == (w.channel, w.sample_index,
                                             w.phy_header.to_bytes(), w.payload,
                                             w.tap_header.frequency)
+        assert g.snr == pytest.approx(w.snr, rel=1e-4)
+        assert g.cfo == pytest.approx(w.cfo, abs=1.0)
+
+
+# C, sps_min, rows, tail samples, lags: the gateway's row and lag geometry,
+# SF7-12 at 1 Msps with a ragged row count, lags (1, 3), sps off the 128
+# grid, lags at and past R, one run of rows, lags past the staged halo,
+# twelve lags (two register chunks)
+LAG_GEOMS = [(4, 256, 1759, 247, (1, 2, 4, 8, 16, 32)), (3, 128, 1189, 17, (1, 2, 4, 8, 16, 32)),
+             (3, 128, 111, 17, (1, 3)), (2, 100, 300, 0, (1, 2, 4)), (2, 1000, 50, 7, (1, 2, 8)),
+             (2, 256, 20, 0, (1, 2, 20, 64)), (1, 128, 40, 0, (1, 2, 4, 8, 16, 32)),
+             (2, 128, 150, 5, (1, 5, 70, 100)), (2, 64, 50, 0, tuple(range(1, 13)))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,sps,rows,tail,lags", LAG_GEOMS)
+def test_lag_rows_kernel_matches_plain(cuda_device, C, sps, rows, tail, lags, dtype):
+    rng = np.random.default_rng(C + sps + rows)
+    x = torch.from_numpy(rng.normal(size=(C, 2, rows * sps + tail)).astype(np.float32))
+    x = x.to(cuda_device).to(dtype)
+    before = lag_rows_kernel.launches
+    e, qs = lag_rows_kernel(x, sps, lags)
+    torch.cuda.synchronize()
+    assert lag_rows_kernel.launches == before + 1
+    e_w, qs_w = lag_rows_planes(x, sps, lags)
+    assert e.shape == (C, rows) and e.is_cuda and e.dtype == torch.float32
+    torch.testing.assert_close(e, e_w, rtol=1e-5, atol=0)
+    for lag in lags:
+        scale = torch.sqrt(e_w * torch.nn.functional.pad(e_w, (0, lag))[:, lag:lag + rows])
+        for g, w in zip(qs[lag], qs_w[lag]):
+            assert g.shape == (C, rows)
+            assert bool(((g - w).abs() <= 1e-5 * scale).all())
+
+
+def test_lag_rows_kernel_single_stream(cuda_device):
+    x = torch.randn((2, 30 * 256 + 9), device=cuda_device)
+    e, qs = lag_rows_kernel(x, 256, (2, 1))
+    assert e.shape == (30,) and sorted(qs) == [1, 2]
+    torch.testing.assert_close(e, lag_rows_planes(x, 256, (1,))[0], rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("case", ["fp16", "three-planes", "strided", "meta-device", "lag-0"])
+def test_lag_rows_kernel_refuses(cuda_device, case):
+    x, lags = torch.zeros((2, 2, 4096), device=cuda_device), (1, 2)
+    if case == "fp16":
+        x = x.half()
+    elif case == "three-planes":
+        x = torch.zeros((2, 3, 4096), device=cuda_device)
+    elif case == "strided":
+        x = torch.zeros((2, 2, 8192), device=cuda_device)[..., ::2]
+    elif case == "meta-device":
+        x = torch.zeros((2, 2, 4096), device="meta")
+    else:
+        lags = (0, 1)
+    before = lag_rows_kernel.launches
+    with pytest.raises((TypeError, ValueError)):
+        lag_rows_kernel(x, 256, lags)
+    assert lag_rows_kernel.launches == before
+
+
+@pytest.mark.parametrize("shared", [True, False])
+def test_gateway_on_card_matches_cpu(cuda_device, shared):
+    """tests/test_multi_sf.py:42-69's capture: SF7-9 on 8 channels."""
+    M = 8
+    cfg = LoRaConfig(sf=7, cr=1, samp_rate=250e3, crc=True)
+    wide_rate = M * cfg.samp_rate
+    freqs = pfb_channel_freqs(wide_rate, M)
+    kw = dict(sfs=(7, 8, 9), pool=8, max_candidates=2, max_symbols=16, sfd_search=10,
+              demod_method="fft", shared_detection=shared)
+    gpu = MultiSFWidebandReceiver(cfg, M, device=cuda_device, **kw)
+    cpu = MultiSFWidebandReceiver(cfg, M, device="cpu", **kw)
+    L = (32 * 1024 + 2 * cpu.max_pkt_samples) * M
+    rng = np.random.default_rng(7)
+    x = 1e-4 * (rng.normal(size=(L, 2)) @ [1, 1j])
+    placements = [(7, 2), (8, 5), (9, 6)]
+    for sf, c in placements:
+        wcfg = LoRaConfig(sf=sf, cr=1, samp_rate=wide_rate, crc=True)
+        pkt = modulate_frame(wcfg, bytes([sf, c]), snr_db=None)
+        pos = 2 * wcfg.samples_per_symbol
+        t = np.arange(pos, pos + len(pkt))
+        x[pos:pos + len(pkt)] += pkt * np.exp(2j * np.pi * freqs[c] / wide_rate * t)
+    x = x.astype(np.complex64)
+    before = (pfb_fir_kernel.launches, lag_rows_kernel.launches,
+              detection_metrics_kernel.launches)
+    got = gpu.run(x)
+    assert (pfb_fir_kernel.launches, lag_rows_kernel.launches,
+            detection_metrics_kernel.launches) == \
+        (before[0] + 1, before[1] + shared, before[2] + 3 * (not shared))
+    want = cpu.run(x)
+    assert [(f.tap_header.sf, f.channel, f.payload[:2]) for f in want] == \
+        [(sf, c, bytes([sf, c])) for sf, c in placements]
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert (g.channel, g.sample_index, g.phy_header.to_bytes(), g.payload,
+                g.tap_header.frequency, g.tap_header.sf) == \
+            (w.channel, w.sample_index, w.phy_header.to_bytes(), w.payload,
+             w.tap_header.frequency, w.tap_header.sf)
         assert g.snr == pytest.approx(w.snr, rel=1e-4)
         assert g.cfo == pytest.approx(w.cfo, abs=1.0)

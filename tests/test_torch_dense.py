@@ -162,9 +162,6 @@ def test_pack_unpack_roundtrip():
     (dict(sf=7, samp_rate=1e6), {}),                                # auto -> gradient
     (dict(sf=7, samp_rate=250e3, implicit=True), {}),
     (dict(sf=7, samp_rate=250e3), dict(low_snr=True)),
-    (dict(sf=11, samp_rate=250e3 * 16), dict(demod_method="fft")),  # drift pass
-    (dict(sf=12, samp_rate=125e3 * 32), dict(demod_method="fft",    # no fold
-                                             fft_drift_pass=False)),
 ])
 def test_unported_configurations_raise(kw, extra):
     with pytest.raises(NotImplementedError):

@@ -28,7 +28,7 @@ def test_import_leaves_jax_and_lora_tpu_out():
         "for m in pkgutil.walk_packages(lora_tpu_torch.__path__, 'lora_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "lora_tpu_torch.DenseReceiver, lora_tpu_torch.WidebandReceiver\n"
-        "lora_tpu_torch.PolyphaseChannelizer\n"
+        "lora_tpu_torch.PolyphaseChannelizer, lora_tpu_torch.MultiSFWidebandReceiver\n"
         f"bad = sorted(n for n in sys.modules if n.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -94,10 +94,11 @@ def test_wrapper_refuses_bad_geometry(shape, sps):
 
 def test_package_exports():
     from lora_tpu_torch.channelizer import PolyphaseChannelizer
-    from lora_tpu_torch.wideband import WidebandReceiver
+    from lora_tpu_torch.wideband import MultiSFWidebandReceiver, WidebandReceiver
 
     assert lora_tpu_torch.LoRaConfig is LoRaConfig
     assert lora_tpu_torch.WidebandReceiver is WidebandReceiver
+    assert lora_tpu_torch.MultiSFWidebandReceiver is MultiSFWidebandReceiver
     assert lora_tpu_torch.PolyphaseChannelizer is PolyphaseChannelizer
     with pytest.raises(AttributeError):
         lora_tpu_torch.NoSuchReceiver

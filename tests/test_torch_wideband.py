@@ -151,8 +151,8 @@ def test_packed_and_tensor_inputs_match_complex():
 
 
 def test_unported_and_bad_options_raise():
-    with pytest.raises(NotImplementedError, match="K3"):
-        MultiSFWidebandReceiver(LoRaConfig(**KW), M)
+    with pytest.raises(ValueError, match="sfs"):
+        MultiSFWidebandReceiver(LoRaConfig(**KW), M, sfs=(), device="cpu")
     with pytest.raises(TypeError):
         WidebandReceiver(LoRaConfig(**KW), M, plane_dtype=torch.float16, device="cpu")
     if not torch.cuda.is_available():
