@@ -10,7 +10,10 @@ Phases, each of which passes or exits non-zero:
 2. build every kernel from ``lora_tpu_torch/csrc``, one ``nvcc`` per
    source, all started together;
 3. each kernel against its plain torch version on the card, float32 and
-   bfloat16, at the main paths' shapes and at ragged and odd geometries;
+   bfloat16, at the main paths' shapes and at ragged and odd geometries
+   (the multi-lag kernel also at both plan gateways' planes; the fused
+   plan channelizer, float32 only, at both plan shapes, a ragged L, C =
+   1, D = 2, D = 1 and past the TPU kernel's gate);
 4. the dense path at full width: the dense receiver (fft engine) on the
    64-channel x 2048-symbol SF7 @ 1 Msps block, float32 then bfloat16
    planes, with the decode gate and the kernels' launch counts; then
@@ -28,12 +31,21 @@ Phases, each of which passes or exits non-zero:
    multi-lag kernel) and of the per-SF detection (six detection
    kernels), which must decode the same lanes; then ``run()`` on a small
    capture, held against the CPU;
-7. each path's throughput (best of rounds of back-to-back calls), beside
+7. the LoRaWAN plan gateway at full width (``bench.py --plan-gateway``:
+   EU868 at 2 Msps, 7 channels, then US915 at 8 Msps, 23 channels, SF7-12
+   each, float32 planes) on captures built on the card, with the decode
+   gate (every placement decodes at its own SF and channel) and the
+   launch counts (one fused channelizer and one multi-lag kernel a call);
+   at EU868 again with the factored channelizer (``fused=False``), which
+   must decode the same lanes; then ``run()`` on a small capture, held
+   against the CPU;
+8. each path's throughput (best of rounds of back-to-back calls), beside
    single synchronised calls, the host's enqueue time, the host
    synchronisations in a call and the allocator's device allocations;
-8. where one call's device time goes (torch.profiler), and the device's
-   idle share; then phase 7 again, after the profiler;
-9. each kernel's time beside its bound, its plain version's time and a
+9. where one call's device time goes (torch.profiler), and the device's
+   idle share, by layer for the wideband, gateway and US915 plan calls;
+   then phase 8 again, after the profiler;
+10. each kernel's time beside its bound, its plain version's time and a
    library call's time where one computes the same function.
 
 The line before the last is the ``kernels`` JSON line; the last line is
@@ -62,7 +74,14 @@ TOL_FIR_BF16 = 2.0 ** -7  # bf16 out: one bf16 ulp of the plain result (relative
 # sqrt(e_r * e_{r+l}) (its Cauchy-Schwarz scale): float32 sums in another order
 TOL_LAG_E_RTOL = 1e-5
 TOL_LAG_Q = 1e-5
+# fused plan channelizer: absolute, times sum|g2 row| * max|x|: twice the
+# worst-case float32 rounding of a sum of 2DK products (the kernel's FMAs
+# and the plain version's matmuls sum in other orders), plus the ramp's
+# four products
+TOL_FUSED_ULPS = 2.0 ** -24
 GATEWAY_SFS = (7, 8, 9, 10, 11, 12)
+# bench.py --plan-gateway's geometries: (center Hz, sample rate)
+PLAN_GEOMS = {"EU868": (868.0e6, 2e6), "US915": (903.0e6, 8e6)}
 GATEWAY_LAGS = (1, 2, 4, 8, 16, 32)   # each SF's symbol in SF7 symbols
 DEADBEEF = bytes.fromhex("deadbeef")
 
@@ -114,7 +133,8 @@ def counts() -> dict:
 
     return {"det_metrics": ck.detection_metrics_kernel.launches,
             "pfb_fir": ck.pfb_fir_kernel.launches,
-            "lag_rows": ck.lag_rows_kernel.launches}
+            "lag_rows": ck.lag_rows_kernel.launches,
+            "fused_chan": ck.fused_channelize_kernel.launches}
 
 
 def zero_counts() -> None:
@@ -123,13 +143,14 @@ def zero_counts() -> None:
     ck.detection_metrics_kernel.launches = 0
     ck.pfb_fir_kernel.launches = 0
     ck.lag_rows_kernel.launches = 0
+    ck.fused_channelize_kernel.launches = 0
 
 
 def phase_build():
     from lora_tpu_torch.ops._build import build
 
     t0 = time.perf_counter()
-    built = build("det_metrics", "pfb_fir", "lag_rows")
+    built = build("det_metrics", "pfb_fir", "lag_rows", "fused_chan")
     print(f"build: {', '.join(built)} (one nvcc each, started together) in "
           f"{time.perf_counter() - t0:.1f} s")
     for name, (_, log) in built.items():
@@ -258,12 +279,14 @@ def phase_lag_vs_plain() -> float:
     from lora_tpu_torch.rx.frontend import detection_metrics_planes, metrics_from_lag_rows
 
     gen = torch.Generator(device="cuda").manual_seed(777)
-    # (C, sps_min, rows, tail samples, lags): the gateway's planes; SF7-12
-    # at 1 Msps with a ragged row count; a lag set that is not powers of
-    # two; sps off the 128 grid (100, 1000); lags at and past R; one run of
-    # rows, and one ragged past a run; lags past the staged halo (read from
-    # memory); twelve lags (two register chunks)
-    geoms = [(256, 256, 1759, 247, GATEWAY_LAGS), (3, 128, 37 * 32 + 5, 17, GATEWAY_LAGS),
+    # (C, sps_min, rows, tail samples, lags): the gateway's planes and the
+    # US915 and EU868 plan gateways' (23 and 7 channels); SF7-12 at 1 Msps
+    # with a ragged row count; a lag set that is not powers of two; sps off
+    # the 128 grid (100, 1000); lags at and past R; one run of rows, and one
+    # ragged past a run; lags past the staged halo (read from memory);
+    # twelve lags (two register chunks)
+    geoms = [(256, 256, 1759, 247, GATEWAY_LAGS), (23, 256, 1759, 247, GATEWAY_LAGS),
+             (7, 256, 1759, 247, GATEWAY_LAGS), (3, 128, 37 * 32 + 5, 17, GATEWAY_LAGS),
              (3, 128, 111, 17, (1, 3)), (2, 100, 300, 0, (1, 2, 4)),
              (2, 1000, 50, 7, (1, 2, 4, 8)), (2, 256, 20, 0, (1, 2, 20, 64)),
              (1, 128, 20, 0, GATEWAY_LAGS), (1, 128, 40, 0, GATEWAY_LAGS),
@@ -286,7 +309,7 @@ def phase_lag_vs_plain() -> float:
             label = f"lag_rows {str(dtype)[6:]} C={C} sps={sps} R={rows} tail={tail} lags={lags}"
             msg = (f"{label}: max abs err {err_abs:.3g}, energy max rel err {err_e:.3g}, "
                    f"lag product max err / sqrt(e e) {err_q:.3g}")
-            if C == 256:   # the gateway: each SF's metrics from the rows, against K1's plain version
+            if rows == 1759:   # the gateways: each SF's metrics from the rows, against K1's plain version
                 err_c = 0.0
                 for m in lags:
                     corr, e1, e2 = metrics_from_lag_rows(got[0], *got[1][m], m)
@@ -302,6 +325,68 @@ def phase_lag_vs_plain() -> float:
             check(err_q <= TOL_LAG_Q, f"{label}: lag product error {err_q} > {TOL_LAG_Q}")
             worst = max(worst, err_abs)
             del xf, got, ref
+    torch.cuda.empty_cache()
+    return worst
+
+
+def fused_min_ops(C: int, D: int, n_taps: int, n_out: int) -> int:
+    """float32 operations the fused channelizer's function needs at least:
+    each channel mixes each input sample once (a complex product, 6 flops;
+    D samples an output), then applies the real taps to the mixed samples
+    (a real-by-complex multiply-add, 4 flops a tap and output). The
+    phasors' own cost and the zero-padded taps are not counted. The kernel
+    computes the folded complex-tap form instead: ``2C x 2DK``
+    multiply-adds an output, ``8DK`` flops a channel and output."""
+    return C * n_out * (6 * D + 4 * n_taps)
+
+
+def phase_fused_vs_plain() -> float:
+    """K5 against its plain version on the card, float32. Returns the
+    largest absolute error."""
+    import numpy as np
+    import torch
+
+    from lora_tpu_torch.channelizer import firdes_low_pass, fused_tables
+    from lora_tpu_torch.ops.cuda_kernels import fused_channelize_kernel, fused_channelize_planes
+
+    gen = torch.Generator(device="cuda").manual_seed(2468)
+    # (C, D, taps, L): the EU868 and US915 plan shapes (their own taps);
+    # a ragged L; C = 1; D = 2; D = 1; past the TPU kernel's gate (K = 151,
+    # and 2DK = 2016 with 63 tap rows: six tap-row stages); C = 9 (two
+    # channel groups) at D = 3
+    geoms = [(7, 8, 77, 3604480), (23, 32, 309, 14417920), (7, 8, 77, 100003),
+             (1, 4, 19, 4429), (3, 2, 9, 2100), (2, 1, 31, 3000), (2, 2, 301, 5000),
+             (3, 16, 1001, 40000), (9, 3, 20, 7777)]
+    worst = 0.0
+    for C, D, nt, L in geoms:
+        rate = D * 250e3
+        offs = np.linspace(-0.4 * rate, 0.4 * rate, C)
+        if (C, D, nt) in ((7, 8, 77), (23, 32, 309)):
+            taps = firdes_low_pass(1.0, rate, 77.5e3, 62.5e3)
+            check(len(taps) == nt, f"plan taps {len(taps)} != {nt}")
+        else:
+            taps = np.random.default_rng(C * 100 + D).normal(0, 0.1, nt).astype(np.float32)
+        g2, ramp = fused_tables(offs, rate, taps, D, L, "cuda")
+        x = torch.randn((2, L), generator=gen, device="cuda")
+        before = fused_channelize_kernel.launches
+        got = fused_channelize_kernel(x, g2, ramp, D, nt)
+        torch.cuda.synchronize()
+        check(fused_channelize_kernel.launches == before + 1,
+              "the fused_chan launch count did not rise")
+        ref = fused_channelize_planes(x, g2, ramp, D, nt, 1024)
+        shape = (C, 2, (L - nt) // D + 1)
+        check(tuple(got.shape) == shape and got.dtype == torch.float32 and got.is_contiguous(),
+              f"fused_chan: {tuple(got.shape)} {got.dtype}, expected {shape} float32")
+        check(bool(torch.isfinite(got).all()), "fused_chan: non-finite output")
+        scale = float(g2.abs().sum(1).max()) * float(x.abs().max())
+        tol = 2 * (g2.shape[1] + 4) * TOL_FUSED_ULPS * scale
+        err = float((got - ref).abs().max())
+        label = f"fused_chan C={C} D={D} taps={nt} K={-(-nt // D)} L={L}"
+        print(f"{label}: max abs err {err:.3g} ({err / scale:.3g} of sum|g2 row| * max|x|; "
+              f"tolerance {tol:.3g})")
+        check(err <= tol, f"{label}: error {err} > {tol}")
+        worst = max(worst, err)
+        del x, got, ref
     torch.cuda.empty_cache()
     return worst
 
@@ -477,7 +562,7 @@ def run_wideband(wr, xd, label: str):
     torch.cuda.synchronize()
     n = counts()
     print(f"wideband {label}: launches {n}")
-    check(n == {"det_metrics": 1, "pfb_fir": 1, "lag_rows": 0},
+    check(n == {"det_metrics": 1, "pfb_fir": 1, "lag_rows": 0, "fused_chan": 0},
           f"{label}: expected one det_metrics and one pfb_fir launch, got {n}")
     return res, n
 
@@ -673,12 +758,14 @@ def phase_gateway():
           and gw.rxs[12]._fold_mat is None and gw.rxs[11]._fold_mat is not None,
           "the gateway's SF receivers: drift pass from SF11, no fold matrices at SF12")
     res, launches = run_gateway(gw, xd, "shared detection",
-                                {"det_metrics": 0, "pfb_fir": 1, "lag_rows": 1})
+                                {"det_metrics": 0, "pfb_fir": 1, "lag_rows": 1,
+                                 "fused_chan": 0})
     check(sorted(res) == list(GATEWAY_SFS), f"gateway result keys {sorted(res)}")
     shared = gateway_gate(res, expect, "shared detection")
     gw.shared_detection = False
     res, _ = run_gateway(gw, xd, "per-SF detection",
-                         {"det_metrics": len(GATEWAY_SFS), "pfb_fir": 1, "lag_rows": 0})
+                         {"det_metrics": len(GATEWAY_SFS), "pfb_fir": 1, "lag_rows": 0,
+                          "fused_chan": 0})
     per_sf = gateway_gate(res, expect, "per-SF detection")
     gw.shared_detection = True
     for sf in GATEWAY_SFS:
@@ -725,6 +812,174 @@ def phase_gateway_run_small():
     check([f.tap_header.sf for f in frames["cuda"]] == [f.tap_header.sf for f in frames["cpu"]],
           "gateway run(): SFs differ from the CPU's")
     print("gateway run(): 3 frames at SF7, 8 and 9 on an 8-channel capture, equal to the CPU's")
+
+
+def plan_capture(gw, seed: int = 4):
+    """``bench.py --plan-gateway``'s capture (``bench.py:195-228``), built on
+    the card: ``L = decim * (max_pkt_samples + 6 * max_sps)`` wideband
+    samples of complex noise (sigma 1e-3 a part, a seeded
+    ``torch.Generator``) and one ``deadbeef`` packet on every in-band plan
+    channel, SFs 7-12 round-robin, each starting two symbols of its own SF
+    in. Each SF's packet is modulated once (the port's modulator, at the
+    wideband rate) and upconverted to its channel's offset with a float64
+    carrier phase reduced mod 1 cycle. Returns ``(planes [2, L] float32,
+    {(sf, channel)})``."""
+    import math
+
+    import torch
+
+    from lora_tpu_torch import LoRaConfig
+    from lora_tpu_torch.tx.modulator import modulate_frame
+
+    rate = gw.samp_rate
+    max_sps = max(rx.sps for rx in gw.rxs.values())
+    L = gw.decim * (gw.max_pkt_samples + 6 * max_sps)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.view_as_complex(1e-3 * torch.randn((L, 2), generator=gen, device="cuda"))
+    pkts, expect = {}, set()
+    for i, f_abs in enumerate(gw.channels):
+        sf = gw.sfs[i % len(gw.sfs)]
+        wcfg = LoRaConfig(sf=sf, cr=4, samp_rate=rate, crc=True, sync_word=0x34)
+        if sf not in pkts:
+            pkts[sf] = torch.from_numpy(modulate_frame(wcfg, DEADBEEF, snr_db=None)).to(
+                "cuda").to(torch.complex128)
+        pkt = pkts[sf]
+        n = pkt.shape[0]
+        pos = 2 * wcfg.samples_per_symbol
+        check(pos + n <= L, f"SF{sf}: the packet does not fit the capture")
+        t = torch.arange(pos, pos + n, dtype=torch.float64, device="cuda")
+        cycles = torch.remainder(t * ((f_abs - gw.center_freq) / rate), 1.0)
+        x[pos:pos + n] += (pkt * torch.polar(torch.ones_like(cycles), 2.0 * math.pi * cycles)
+                           ).to(torch.complex64)
+        expect.add((sf, i))
+    return torch.stack([x.real, x.imag]).contiguous(), expect
+
+
+def plan_gate(results, expect, label: str) -> set:
+    """Every placement decodes ``de ad be ef`` at its own SF and channel;
+    a valid lane with any other payload fails the run, and valid lanes
+    elsewhere are printed. Returns the valid lanes as ``{(sf, channel,
+    start, payload)}``."""
+    got, lanes, other, bad = set(), set(), [], 0
+    for sf, res in results.items():
+        valid = res.valid.cpu().numpy()
+        chan = res.channel.cpu().numpy()[valid]
+        start = res.start.cpu().numpy()[valid]
+        pay = res.payload.cpu().numpy()[valid]
+        plen = res.length.cpu().numpy()[valid]
+        for c, st, p, n in zip(chan, start, pay, plen):
+            payload = bytes(p[:n])
+            lanes.add((sf, int(c), int(st), payload))
+            if payload[:4] != DEADBEEF:
+                bad += 1
+            elif (sf, int(c)) in expect:
+                got.add((sf, int(c)))
+            else:
+                other.append((sf, int(c), int(st)))
+        for name in ("snr", "cfo"):
+            check(bool(getattr(res, name)[res.valid].isfinite().all()),
+                  f"{label} SF{sf}: non-finite {name}")
+    print(f"plan gateway {label}: {len(got)}/{len(expect)} placements decode de ad be ef at "
+          f"their own SF and channel, {len(lanes)} valid lanes, {bad} wrong payloads, "
+          f"other de ad be ef lanes (sf, channel, start): {sorted(other)}")
+    check(got == expect, f"{label}: placements {sorted(expect - got)[:8]} missing")
+    check(bad == 0, f"{label}: {bad} valid lanes with another payload")
+    return lanes
+
+
+def run_plan(gw, xd, label: str, want: dict):
+    """One ``process()`` call with every count zeroed just before it and
+    read just after; it must launch exactly the kernels of ``want``."""
+    import torch
+
+    torch.cuda.synchronize()
+    zero_counts()
+    res = gw.process(xd)
+    torch.cuda.synchronize()
+    n = counts()
+    print(f"plan gateway {label}: launches {n}")
+    check(n == want, f"{label}: expected launches {want}, got {n}")
+    return res, n
+
+
+def phase_plan_gateway():
+    """The plan gateway at full width: ``bench.py --plan-gateway`` EU868 then
+    US915, with the fused channelizer; at EU868 also the factored one,
+    which must decode the same lanes. Returns ``{plan: (gateway, capture,
+    launches)}``."""
+    import torch
+
+    from lora_tpu_torch import PlanGateway
+
+    out = {}
+    fused_want = {"det_metrics": 0, "pfb_fir": 0, "lag_rows": 1, "fused_chan": 1}
+    for plan, (center, rate) in PLAN_GEOMS.items():
+        gw = PlanGateway(plan, center, rate, sfs=GATEWAY_SFS, pool=24, max_candidates=2,
+                         max_symbols=24, sfd_search=12, demod_method="fft")
+        check(gw.device.type == "cuda" and gw.fused, "the plan gateway did not default to "
+              "the card and the fused channelizer")
+        xd, expect = plan_capture(gw)
+        C, D, nt = len(gw.channels), gw.decim, len(gw.taps)
+        n_out = (xd.shape[-1] - nt) // D + 1
+        print(f"plan gateway {plan}: {C} channels, D={D}, {nt} taps, L={xd.shape[-1]}, "
+              f"n_out={n_out}, {len(expect)} placements")
+        check((C, D, nt, n_out) == {"EU868": (7, 8, 77, 450551),
+                                    "US915": (23, 32, 309, 450551)}[plan],
+              f"{plan}: geometry {(C, D, nt, n_out)}")
+        res, launches = run_plan(gw, xd, f"{plan} fused", fused_want)
+        check(sorted(res) == list(GATEWAY_SFS), f"{plan}: result keys {sorted(res)}")
+        lanes = plan_gate(res, expect, f"{plan} fused")
+        if plan == "EU868":
+            gw.fused = False
+            res, _ = run_plan(gw, xd, f"{plan} factored", dict(fused_want, fused_chan=0))
+            check(plan_gate(res, expect, f"{plan} factored") == lanes,
+                  f"{plan}: the factored channelizer decoded other lanes than the fused one")
+            gw.fused = True
+            print(f"plan gateway {plan}: the factored channelizer decodes the same lanes "
+                  f"(sf, channel, start, payload) as the fused one")
+        out[plan] = (gw, xd, launches)
+        del res
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_plan_run_small():
+    """``run()`` on a small plan capture (tests/test_plans.py:24-60: EU868 at
+    868.3 MHz and 2 Msps, one packet at SF7 on 868.1 MHz and one at SF8 on
+    868.5 MHz), fused and factored, on the card and on the CPU: the frames
+    must agree field by field."""
+    import numpy as np
+
+    from lora_tpu_torch import LoRaConfig, PlanGateway
+    from lora_tpu_torch.tx.modulator import modulate_frame
+
+    center, rate = 868.3e6, 2e6
+    L = 40 * 4096
+    rng = np.random.default_rng(5)
+    x = rng.normal(0, 1e-4, L) + 1j * rng.normal(0, 1e-4, L)
+    t = np.arange(L, dtype=np.float64)
+    placements = [(7, 868.1e6), (8, 868.5e6)]
+    for sf, f_abs in placements:
+        wcfg = LoRaConfig(sf=sf, cr=4, samp_rate=rate, crc=True, sync_word=0x34)
+        pkt = modulate_frame(wcfg, DEADBEEF + bytes([sf]), snr_db=None)
+        pos = 2 * wcfg.samples_per_symbol
+        x[pos:pos + len(pkt)] += pkt * np.exp(2j * np.pi * (f_abs - center) / rate
+                                              * t[pos:pos + len(pkt)])
+    x = x.astype(np.complex64)
+    for fused in (True, False):
+        kw = dict(sfs=(7, 8), pool=8, max_candidates=2, max_symbols=16, sfd_search=10,
+                  demod_method="fft", fused=fused)
+        frames = {dev: PlanGateway("EU868", center, rate, device=dev, **kw).run(x)
+                  for dev in ("cuda", "cpu")}
+        label = f"plan run() fused={fused}"
+        check([(f.tap_header.sf, f.tap_header.frequency) for f in frames["cuda"]]
+              == [(sf, int(f)) for sf, f in placements],
+              f"{label}: {[(f.tap_header.sf, f.tap_header.frequency) for f in frames['cuda']]}")
+        same_frames(frames["cuda"], frames["cpu"], label)
+        check([f.tap_header.sf for f in frames["cuda"]] == [f.tap_header.sf for f in frames["cpu"]],
+              f"{label}: SFs differ from the CPU's")
+    print("plan run(): 2 frames at SF7 and SF8 on the EU868 raster, fused and factored, "
+          "equal to the CPU's")
 
 
 def host_syncs(fn) -> list:
@@ -805,6 +1060,10 @@ def wideband_calls(receivers, xd) -> dict:
 
 def gateway_calls(gw, xd) -> dict:
     return {"bfloat16": (gw.process, xd, xd.shape[-1])}
+
+
+def plan_calls(gw, xd) -> dict:
+    return {"float32": (gw.process, xd, xd.shape[-1])}
 
 
 def call_ms(fn, n: int) -> list:
@@ -911,8 +1170,69 @@ def phase_profile_gateway(gw, xd):
           f"{fft:.3f} ms), of {busy:.3f} ms busy")
 
 
+def phase_profile_plan(gw, xd):
+    """The US915 plan call's device time in the layers of the path: K5, the
+    planes' copy (none when the float32 planes are already contiguous),
+    the shared detection (K3 and the per-SF metrics, profiled alone), and
+    each SF's Phase B stage (candidates, pool, demod, decode tail; each SF
+    profiled alone on the same planes and metrics)."""
+    from lora_tpu_torch.rx.frontend import multi_sf_detection_metrics
+
+    [(rows, busy)] = phase_profile("plan US915", plan_calls(gw, xd))
+    k5 = sum(ms for k, ms, _ in rows if "fused_chan" in k)
+    k3 = sum(ms for k, ms, _ in rows if "lag_rows" in k)
+    cp = gw.channel_planes(xd)
+    copy = "none (float32 planes, contiguous)" if cp.contiguous() is cp else "one copy"
+    sps = {sf: rx.sps for sf, rx in gw.rxs.items()}
+    metrics = multi_sf_detection_metrics(cp, sps)
+    _, mrows, _ = device_rows(lambda: multi_sf_detection_metrics(cp, sps))
+    det = sum(ms for _, ms, _ in mrows)
+    stages = {}
+    for sf, rx in gw.rxs.items():
+        _, srows, _ = device_rows(
+            lambda rx=rx, sf=sf: rx.process_pooled_planes(cp, gw.pool, metrics=metrics[sf]))
+        stages[sf] = sum(ms for _, ms, _ in srows)
+    print(f"profile plan US915 float32 by layer: K5 {k5:.3f} ms, planes' copy {copy}, K3 "
+          f"{k3:.3f} ms, per-SF metrics {det - k3:.3f} ms (detection profiled alone "
+          f"{det:.3f} ms), Phase B by SF (each alone) "
+          + ", ".join(f"SF{sf} {ms:.3f}" for sf, ms in stages.items())
+          + f" ms; parts {k5 + det + sum(stages.values()):.3f} ms, of {busy:.3f} ms busy "
+          f"in the whole call")
+    del cp, metrics
+
+
+def fused_library_call(gw, xd):
+    """The library yardstick of K5: one ``conv1d`` of the planes ``[1, 2,
+    L]`` (zero-padded by the taps' padding, so its output has ``n_out``
+    samples) with the real form ``[2C, 2, K*D]`` of ``g_c[k] = taps[k] *
+    exp(-2j pi a_c k)``, built in float64, and ``stride = D``. It leaves
+    out the output ramp, which has unit magnitude: ``|out_c[n]|`` is the
+    same. Returns ``(fn, magnitudes [C, n_out])``."""
+    import numpy as np
+    import torch
+
+    C, D, nt = len(gw.channels), gw.decim, len(gw.taps)
+    KD = -(-nt // D) * D
+    a = np.asarray(gw.offsets, np.float64) / gw.samp_rate
+    tpad = np.zeros(KD, np.float64)
+    tpad[:nt] = gw.taps
+    g = tpad * np.exp(-2j * np.pi * ((a[:, None] * np.arange(KD)) % 1.0))     # [C, KD]
+    w = np.empty((C, 2, 2, KD), np.float64)
+    w[:, 0, 0], w[:, 0, 1] = g.real, -g.imag
+    w[:, 1, 0], w[:, 1, 1] = g.imag, g.real
+    w = torch.as_tensor(w.reshape(2 * C, 2, KD).astype(np.float32), device=xd.device)
+    xin = torch.nn.functional.pad(xd, (0, KD - nt)).unsqueeze(0)
+
+    def fn():
+        return torch.nn.functional.conv1d(xin, w, stride=D)
+
+    y = fn()[0].view(C, 2, -1)
+    return fn, torch.hypot(y[:, 0], y[:, 1])
+
+
 def phase_kernel_times(rx, planes, launches, worst_err, receivers, xd_wide,
-                       wide_launches, worst_fir, gw, xd_gw, gw_launches, worst_lag):
+                       wide_launches, worst_fir, gw, xd_gw, gw_launches, worst_lag,
+                       plans, worst_fused):
     import torch
 
     from lora_tpu_torch.ops.cuda_kernels import (detection_metrics_kernel,
@@ -999,6 +1319,42 @@ def phase_kernel_times(rx, planes, launches, worst_err, receivers, xd_wide,
           f"{gw_launches['lag_rows']}; the six per-SF det_metrics launches it replaces "
           f"{six_k1:.4f} ms")
     del cp
+    # K5 at both plan shapes: the gateway's own tables for its capture
+    from lora_tpu_torch.device import full_f32_matmul
+    from lora_tpu_torch.ops.cuda_kernels import fused_channelize_kernel, fused_channelize_planes
+
+    fused = {}
+    for plan, (pgw, xd, plaunches) in plans.items():
+        g2, L = pgw._g2, xd.shape[-1]
+        ramp = pgw._tables[("fused", L)]
+        C, D, nt = len(pgw.channels), pgw.decim, len(pgw.taps)
+        n_out = (L - nt) // D + 1
+        # operations: the least the function needs (fused_min_ops); bytes:
+        # the planes, G2 and the ramp read once, the output written once
+        t_ops = fused_min_ops(C, D, nt, n_out) / F32_FLOPS_PER_S * 1e3
+        t_bytes = (xd.numel() + g2.numel() + sum(r.numel() for r in ramp)
+                   + C * 2 * n_out) * 4 / HBM_BYTES_PER_S * 1e3
+        with full_f32_matmul():
+            lib_fn, lib_mag = fused_library_call(pgw, xd)
+            out = fused_channelize_kernel(xd, g2, ramp, D, nt)
+            mag_err = float((torch.hypot(out[:, 0], out[:, 1]) - lib_mag).abs().max())
+            st = dict(ms=cuda_ms(lambda: fused_channelize_kernel(xd, g2, ramp, D, nt), 20),
+                      plain_ms=cuda_ms(lambda: fused_channelize_planes(xd, g2, ramp, D, nt,
+                                                                       pgw._fused_tile), 5),
+                      library_ms=cuda_ms(lib_fn, 20),
+                      bound_ms=max(t_bytes, t_ops),
+                      bound_by="bytes" if t_bytes >= t_ops else "operations")
+        fused[plan] = st
+        del out, lib_mag, lib_fn
+        print(f"fused_chan {plan} float32 at L={L} C={C} D={D} taps={nt} n_out={n_out}: kernel "
+              f"{st['ms']:.4f} ms, plain {st['plain_ms']:.4f} ms, conv1d(stride=D, cuDNN TF32 "
+              f"off; no output ramp) {st['library_ms']:.4f} ms (its |out| within {mag_err:.3g} "
+              f"of the kernel's), bound {st['bound_ms']:.4f} ms (ops {t_ops:.4f}, bytes "
+              f"{t_bytes:.4f}; {100 * st['bound_ms'] / st['ms']:.1f} % of it), "
+              f"{2 * g2.numel() * n_out / st['ms'] / 1e9:.1f} TFLOP/s of the kernel's own "
+              f"folded form ({2 * g2.numel() / (6 * D + 4 * nt) / C:.2f}x the least flops), "
+              f"launches per process() {plaunches['fused_chan']}")
+    torch.cuda.empty_cache()
     print(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     st, sf = stats[torch.float32], fir[torch.float32]
     print(json.dumps({"kernels": [{
@@ -1037,6 +1393,18 @@ def phase_kernel_times(rx, planes, launches, worst_err, receivers, xd_wide,
         "bound_ms": lag["bound_ms"],
         "bound_by": lag["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "fused_chan",
+        "route": "cuda",
+        "source": "lora_tpu_torch/csrc/fused_chan.cu",
+        "replaces": "lora_tpu/ops/pallas_kernels.py:386",
+        "launches": plans["US915"][2]["fused_chan"],
+        "max_abs_err": worst_fused,
+        "ms": fused["US915"]["ms"],
+        "plain_ms": fused["US915"]["plain_ms"],
+        "bound_ms": fused["US915"]["bound_ms"],
+        "bound_by": fused["US915"]["bound_by"],
+        "library_ms": fused["US915"]["library_ms"],
     }]}))
 
 
@@ -1050,6 +1418,7 @@ def main() -> int:
     worst = phase_kernel_vs_plain()
     worst_fir = phase_pfb_vs_plain()
     worst_lag = phase_lag_vs_plain()
+    worst_fused = phase_fused_vs_plain()
     cfg, x, expected, pkt_len = bench_block()
     rx, planes, launches = phase_main_path(cfg, x, expected)
     phase_run_small(cfg, x, pkt_len)
@@ -1057,6 +1426,8 @@ def main() -> int:
     phase_wideband_run_small()
     gw, xd_gw, gw_launches = phase_gateway()
     phase_gateway_run_small()
+    plans = phase_plan_gateway()
+    phase_plan_run_small()
     for when in ("before profile", "after profile"):
         phase_throughput("dense_rx_throughput", dense_calls(rx, planes), when,
                          device_name, smi_line)
@@ -1064,12 +1435,17 @@ def main() -> int:
                          when, device_name, smi_line)
         phase_throughput("gateway_256ch_6sf_throughput", gateway_calls(gw, xd_gw), when,
                          device_name, smi_line)
+        for plan, (pgw, pxd, _) in plans.items():
+            phase_throughput(f"plan_gateway_{plan.lower()}_6sf_throughput",
+                             plan_calls(pgw, pxd), when, device_name, smi_line)
         if when == "before profile":
             phase_profile("dense", dense_calls(rx, planes))
             phase_profile_wideband(receivers, xd_wide)
             phase_profile_gateway(gw, xd_gw)
+            phase_profile("plan EU868", plan_calls(*plans["EU868"][:2]))
+            phase_profile_plan(*plans["US915"][:2])
     phase_kernel_times(rx, planes, launches, worst, receivers, xd_wide, wide_launches,
-                       worst_fir, gw, xd_gw, gw_launches, worst_lag)
+                       worst_fir, gw, xd_gw, gw_launches, worst_lag, plans, worst_fused)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

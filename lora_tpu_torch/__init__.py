@@ -15,7 +15,10 @@ Ported so far:
   channelizer (``PolyphaseChannelizer``), with the branch FIR as a CUDA
   kernel (``csrc/pfb_fir.cu``);
 - the multi-SF gateway (``MultiSFWidebandReceiver``), with every SF's
-  detection from one multi-lag CUDA kernel (``csrc/lag_rows.cu``).
+  detection from one multi-lag CUDA kernel (``csrc/lag_rows.cu``);
+- the LoRaWAN plan gateway (``PlanGateway``): every in-band channel of a
+  regional plan at every SF, with the fused mix + decimating FIR + output
+  ramp channelizer as a CUDA kernel (``csrc/fused_chan.cu``).
 """
 
 __version__ = "0.1.0"
@@ -37,6 +40,10 @@ def __getattr__(name):  # lazy: the receivers pull in torch
         from .wideband import MultiSFWidebandReceiver
 
         return MultiSFWidebandReceiver
+    if name == "PlanGateway":
+        from .plans import PlanGateway
+
+        return PlanGateway
     if name == "PolyphaseChannelizer":
         from .channelizer import PolyphaseChannelizer
 

@@ -14,6 +14,17 @@ version :func:`pfb_fir_planes` on the CPU. The M-point DFT across the
 branches is one stacked real matrix product (or two, for the two-stage
 split), written channel-major so no transpose pass follows.
 
+The LoRaWAN plan gateway needs channels on an arbitrary raster (200 kHz
+apart), which no critically-sampled PFB grid hosts. Its channelizer is a
+batched frequency-translating FIR decimator, ``out_c[n] = sum_k taps[k]
+* x[nD + k] * exp(-2j pi a_c (nD + k))`` with ``a_c = f_c / fs``, in two
+forms: the fused mix + FIR + decimate (the hand-written kernel
+``csrc/fused_chan.cu`` on the card,
+:func:`lora_tpu_torch.ops.cuda_kernels.fused_channelize_kernel`, and its
+plain version :func:`fused_channelize_planes`), and the factored path
+(:func:`channelize_list_planes_factored`: the mixer rebuilt from two
+small tables, then :func:`_decimating_fir`), the A/B control.
+
 Filter design follows GNU Radio's ``firdes.low_pass`` (Hamming window,
 tap count from the 53 dB attenuation rule), the reference channelizer's
 spec. Host constants are built in float64 and cast once.
@@ -275,3 +286,209 @@ class PolyphaseChannelizer:
         out = w2 @ b.view(M1, 2 * M2, R)                     # [k1, (k2, q), o]
         out = out.view(M1, M2, 2, R)[..., :n_out]
         return out.transpose(0, 1).reshape(self.M, 2, n_out)
+
+
+# -- the plan channelizer: host tables (numpy, float64, cast once) --------
+def make_mixer_factors(offsets_hz, samp_rate: float, length: int,
+                       tile: int = 4096):
+    """Rank-1 factorisation of the mixer table ``exp(-2j pi a_c n)``,
+    ``a_c = f_c / fs``: over ``n = i*tile + j`` it is the product of an
+    outer block phasor ``exp(-2j pi frac(a_c tile i))`` ``[C, nI]`` and an
+    inner ramp ``exp(-2j pi frac(a_c j))`` ``[C, tile]``, both phase-reduced
+    in float64 on the host, so the product's phase error stays at float32
+    rounding for any ``n`` (a float32 ramp on the device drifts by degrees
+    over millions of samples). Returns ``(outer, inner)`` packed float32
+    planes ``[C, 2, nI]`` / ``[C, 2, tile]``, ``nI = ceil(length / tile)``.
+    """
+    offs = np.asarray(offsets_hz, dtype=np.float64) / samp_rate
+    nI = -(-int(length) // tile)
+    ph_o = -2.0 * np.pi * (
+        (offs[:, None] * tile * np.arange(nI, dtype=np.float64)[None, :]) % 1.0
+    )
+    ph_i = -2.0 * np.pi * (
+        (offs[:, None] * np.arange(tile, dtype=np.float64)[None, :]) % 1.0
+    )
+    outer = np.stack([np.cos(ph_o), np.sin(ph_o)], axis=1).astype(np.float32)
+    inner = np.stack([np.cos(ph_i), np.sin(ph_i)], axis=1).astype(np.float32)
+    return outer, inner
+
+
+def make_fused_fir_matrix(offsets_hz, samp_rate: float, taps,
+                          decimation: int) -> np.ndarray:
+    """Folded FIR matrix of the fused channelizer, ``[2C, K*2D]`` float32.
+
+    The decimated frequency-translating FIR splits over ``k = j*D + d``
+    into a per-output ramp ``exp(-2j pi a_c D n)`` (applied after the sum,
+    :func:`make_output_ramp_factors`) and a contraction with ``g_c[d, j] =
+    taps[j*D + d] * exp(-2j pi a_c d) * exp(-2j pi a_c D j)``, all phases
+    reduced in float64. Rows ``0..C-1`` give the real output planes,
+    ``C..2C-1`` the imaginary ones; feature ``f = j*2D + p*D + d``
+    multiplies input plane ``p``'s sample ``(n + j)*D + d``. ``K =
+    ceil(len(taps) / D)``; the taps are zero-padded to ``K*D``.
+    """
+    a = np.asarray(offsets_hz, np.float64) / samp_rate
+    D = int(decimation)
+    taps = np.asarray(taps, np.float64)
+    Nt = len(taps)
+    K = -(-Nt // D)
+    tpad = np.zeros(K * D, np.float64)
+    tpad[:Nt] = taps
+    h = tpad.reshape(K, D)                                   # h[j, d]
+    C = len(a)
+    ph_d = -2.0 * np.pi * ((a[:, None] * np.arange(D)) % 1.0)
+    ph_j = -2.0 * np.pi * ((a[:, None] * D * np.arange(K)) % 1.0)
+    g = (h.T[None, :, :]
+         * np.exp(1j * ph_d)[:, :, None]
+         * np.exp(1j * ph_j)[:, None, :])                    # [C, D, K]
+    g_re = np.real(g).transpose(0, 2, 1)                     # [C, K, D]
+    g_im = np.imag(g).transpose(0, 2, 1)
+    A = np.stack([g_re, -g_im], axis=2)                      # [C, K, 2, D]
+    B = np.stack([g_im, g_re], axis=2)
+    G2 = np.concatenate([A.reshape(C, -1), B.reshape(C, -1)], axis=0)
+    return G2.astype(np.float32)
+
+
+def make_output_ramp_factors(offsets_hz, samp_rate: float, decimation: int,
+                             nb: int, tile: int):
+    """The output ramp ``exp(-2j pi a_c D n)`` for ``n = i*tile + l``,
+    factored into an outer phasor ``[C, nb]`` and an inner ramp ``[C,
+    tile]``: the input-rate mixer of :func:`make_mixer_factors` at ``D``
+    times the offset. Returns ``(o_re, o_im, i_re, i_im)`` float32."""
+    offs = np.asarray(offsets_hz, np.float64) * decimation
+    outer, inner = make_mixer_factors(offs, samp_rate, nb * tile, tile=tile)
+    return (outer[:, 0].copy(), outer[:, 1].copy(),
+            inner[:, 0].copy(), inner[:, 1].copy())
+
+
+# -- the plan channelizer: device paths ----------------------------------
+def fused_out_len(L: int, n_taps: int, decimation: int) -> int:
+    """Output samples of the decimating FIR, ``(L - n_taps) // D + 1``;
+    raises ``ValueError`` when the block is shorter than the filter."""
+    n_out = (int(L) - int(n_taps)) // int(decimation) + 1
+    if n_out < 1:
+        raise ValueError(f"a block of {L} samples is shorter than the {n_taps}-tap filter")
+    return n_out
+
+
+def fused_ramp_factors(offsets_hz, samp_rate: float, decimation: int, n_taps: int,
+                       length: int, tile: int = 1024):
+    """:func:`make_output_ramp_factors` for a block of ``length`` samples:
+    ``nb = ceil(n_out / tile)`` tiles of its ``n_out`` outputs."""
+    n_out = fused_out_len(length, n_taps, decimation)
+    return make_output_ramp_factors(offsets_hz, samp_rate, decimation, -(-n_out // tile), tile)
+
+
+def fused_tables(offsets_hz, samp_rate: float, taps, decimation: int, length: int, device,
+                 tile: int = 1024):
+    """The fused channelizer's tables for blocks of ``length`` samples, as
+    float32 tensors on ``device``: ``(g2, ramp)``, the
+    :func:`make_fused_fir_matrix` and the :func:`fused_ramp_factors`."""
+    g2 = torch.as_tensor(make_fused_fir_matrix(offsets_hz, samp_rate, taps, decimation),
+                         device=device)
+    ramp = tuple(torch.as_tensor(r, device=device) for r in fused_ramp_factors(
+        offsets_hz, samp_rate, decimation, len(taps), length, tile))
+    return g2, ramp
+
+
+def fused_channelize_planes(xf: torch.Tensor, g2: torch.Tensor, ramp, decimation: int,
+                            n_taps: int, tile: int) -> torch.Tensor:
+    """Plain version of the fused mix + FIR + decimate channelizer.
+
+    ``xf``: packed wideband planes ``[2, L]`` float32; ``g2``: the
+    :func:`make_fused_fir_matrix` ``[2C, K*2D]``; ``ramp``: ``(o_re, o_im,
+    i_re, i_im)`` of :func:`make_output_ramp_factors` for ``nb =
+    ceil(n_out / tile)`` blocks of ``tile`` outputs, all tensors on
+    ``xf``'s device. With the planes viewed phase-major (row ``p*D + d``
+    holds plane ``p``'s samples ``q*D + d``), ``s = sum_{j<K} g2[:,
+    j*2D:(j+1)*2D] @ xp[:, j:j+n_out]`` in full float32; then output ``n``
+    of channel ``c`` is ``s_c[n]`` times the complex ramp ``outer[c, n //
+    tile] * inner[c, n % tile]``, each complex product in the order
+    ``(re*re - im*im, re*im + im*re)``. Returns ``[C, 2, n_out]`` float32,
+    ``n_out = (L - n_taps) // D + 1``; samples past ``L`` read as zero.
+    Any geometry is taken.
+    """
+    D = int(decimation)
+    twoC, F = g2.shape
+    C = twoC // 2
+    K = F // (2 * D)
+    L = xf.shape[-1]
+    n_out = fused_out_len(L, n_taps, D)
+    o_re, o_im, i_re, i_im = ramp
+    nb = -(-n_out // tile)
+    if o_re.shape[-1] != nb or i_re.shape[-1] != tile:
+        raise ValueError(f"ramp factors built for nb={o_re.shape[-1]}, tile="
+                         f"{i_re.shape[-1]}; this call needs nb={nb}, tile={tile}")
+    Q = n_out + K - 1
+    xq = torch.nn.functional.pad(xf[:, : Q * D], (0, max(Q * D - L, 0)))
+    xp = xq.reshape(2, Q, D).transpose(1, 2).reshape(2 * D, Q)
+    with full_f32_matmul():
+        s = g2[:, : 2 * D] @ xp[:, :n_out]
+        for j in range(1, K):
+            s = s + g2[:, j * 2 * D:(j + 1) * 2 * D] @ xp[:, j:j + n_out]
+    n = torch.arange(n_out, device=xf.device)
+    blk, lane = n // tile, n % tile
+    ore, oim = o_re[:, blk], o_im[:, blk]
+    ir, ii = i_re[:, lane], i_im[:, lane]
+    rr = ore * ir - oim * ii
+    ri = ore * ii + oim * ir
+    s_re, s_im = s[:C], s[C:]
+    return torch.stack([rr * s_re - ri * s_im, ri * s_re + rr * s_im], dim=1)
+
+
+def channelize_list_planes_factored(xf: torch.Tensor, taps, outer: torch.Tensor,
+                                    inner: torch.Tensor, decimation: int) -> torch.Tensor:
+    """The factored channelizer: packed planes ``[2, L]`` float32 and the
+    :func:`make_mixer_factors` planes ``outer [C, 2, nI]`` / ``inner [C,
+    2, tile]`` (tensors on ``xf``'s device) -> ``[C, 2, n_out]`` float32.
+    The mixer is rebuilt on the device as the broadcast complex product
+    of the two tables, the mixed planes ``[C, 2, L]`` are materialised,
+    and :func:`_decimating_fir` filters and decimates them."""
+    C, _, nI = outer.shape
+    T = inner.shape[-1]
+    L = xf.shape[-1]
+    xf = torch.nn.functional.pad(xf, (0, nI * T - L))
+    xr = xf[0].reshape(nI, T)
+    xi = xf[1].reshape(nI, T)
+    mr = (outer[:, 0, :, None] * inner[:, 0, None, :]
+          - outer[:, 1, :, None] * inner[:, 1, None, :])   # [C, nI, T]
+    mi = (outer[:, 0, :, None] * inner[:, 1, None, :]
+          + outer[:, 1, :, None] * inner[:, 0, None, :])
+    mixed_r = (mr * xr[None] - mi * xi[None]).reshape(C, nI * T)[:, :L]
+    mixed_i = (mr * xi[None] + mi * xr[None]).reshape(C, nI * T)[:, :L]
+    mixed = torch.stack([mixed_r, mixed_i], dim=1)        # [C, 2, L]
+    return _decimating_fir(mixed, taps, decimation)
+
+
+def _decimating_fir(mixed: torch.Tensor, taps, decimation: int) -> torch.Tensor:
+    """Decimating FIR on plane rows ``[..., L]``: ``out[n] = sum_k taps[k]
+    * m[n*D + k]`` (the correlation form), ``n < (L - Nt) // D + 1``.
+
+    For ``D >= 2`` and ``K = ceil(Nt / D) <= 64``: the rows viewed as
+    ``[Q, D]`` phase rows times the taps arranged ``H[d, j] = taps[j*D +
+    d]``, one ``[D x K]`` product (1/D of the full-rate work), then the K
+    shifted diagonals summed; zero rows pad the tail, where only the
+    zero-padded taps reach. Otherwise one strided ``conv1d``. Both run in
+    full float32 (no TF32).
+    """
+    D = int(decimation)
+    taps = np.asarray(taps, np.float32)
+    Nt = len(taps)
+    L = mixed.shape[-1]
+    lead = mixed.shape[:-1]
+    K = -(-Nt // D)
+    with full_f32_matmul():
+        if D < 2 or K > 64:
+            t = torch.as_tensor(taps, device=mixed.device).view(1, 1, Nt)
+            y = torch.nn.functional.conv1d(mixed.reshape(-1, 1, L), t, stride=D)
+            return y.reshape(lead + (-1,))
+        tpad = np.zeros(K * D, np.float32)
+        tpad[:Nt] = taps
+        H = torch.as_tensor(np.ascontiguousarray(tpad.reshape(K, D).T), device=mixed.device)
+        n_out = (L - Nt) // D + 1
+        Q = n_out + K - 1
+        mixed = torch.nn.functional.pad(mixed[..., : Q * D], (0, max(Q * D - L, 0)))
+        Z = mixed.reshape(lead + (Q, D)) @ H                 # [..., Q, K]
+        out = Z[..., 0:n_out, 0]
+        for j in range(1, K):
+            out = out + Z[..., j:j + n_out, j]
+        return out

@@ -9,7 +9,8 @@ receiver's own (:func:`~lora_tpu_torch.rx.dense.build_tables`), or one
 taken from another implementation of the same receiver, so that the
 port's arithmetic can be checked apart from its table building.
 :func:`load_channelizer` does the same for a polyphase channelizer's
-branch taps and DFT planes.
+branch taps and DFT planes, and :func:`load_plan_tables` for a plan
+gateway's channel taps, folded FIR matrix and output ramp factors.
 """
 
 from __future__ import annotations
@@ -85,3 +86,37 @@ def load_channelizer(pfb, h_poly, dft=None) -> None:
         dft = tuple(np.asarray(p, np.float64) for p in dft)
     pfb._set_taps(np.asarray(h_poly, np.float32))
     pfb._dft_src = dft
+
+
+def load_plan_tables(gw, taps, g2, ramp=None, length=None) -> None:
+    """Install a :class:`~lora_tpu_torch.plans.PlanGateway`'s channel taps
+    ``[Nt]`` and folded FIR matrix ``g2`` ``[2C, K*2D]`` (numpy) on its
+    device, and optionally the ramp factors ``ramp = (o_re, o_im, i_re,
+    i_im)`` for blocks of ``length`` wideband samples (``[C, nb]`` x2 and
+    ``[C, tile]`` x2, ``nb = ceil(n_out / tile)``, tile the gateway's).
+    Raises ``ValueError`` for a shape that does not fit the gateway's
+    ``(C, D, K)``."""
+    from .channelizer import fused_out_len
+
+    C, D = len(gw.channels), gw.decim
+    taps = np.asarray(taps, np.float32)
+    K = -(-len(gw.taps) // D)
+    if taps.ndim != 1 or len(taps) < 1 or -(-len(taps) // D) != K:
+        raise ValueError(f"taps: shape {taps.shape}, expected [Nt] with ceil(Nt / {D}) = {K}")
+    if tuple(np.shape(g2)) != (2 * C, K * 2 * D):
+        raise ValueError(f"g2: shape {tuple(np.shape(g2))}, expected {(2 * C, K * 2 * D)}")
+    if ramp is not None:
+        if length is None:
+            raise ValueError("ramp factors need the block length they were built for")
+        tile = gw._fused_tile
+        nb = -(-fused_out_len(length, len(taps), D) // tile)
+        want = [(C, nb)] * 2 + [(C, tile)] * 2
+        got = [tuple(np.shape(r)) for r in ramp]
+        if got != want:
+            raise ValueError(f"ramp: shapes {got}, expected {want}")
+    gw.taps = taps
+    gw._g2 = torch.as_tensor(np.ascontiguousarray(g2, np.float32), device=gw.device)
+    gw._tables = {}
+    if ramp is not None:
+        gw._cached(("fused", int(length)),
+                   lambda: tuple(np.ascontiguousarray(r, np.float32) for r in ramp))

@@ -7,6 +7,9 @@
   ``_pfb_fir_kernel``); its plain version is :func:`pfb_fir_planes`.
 - :func:`lag_rows_kernel` launches ``csrc/lag_rows.cu`` (the counterpart
   of ``_lag_rows_kernel``); its plain version is :func:`lag_rows_planes`.
+- :func:`fused_channelize_kernel` launches ``csrc/fused_chan.cu`` (the
+  counterpart of ``_fused_chan_kernel``); its plain version is
+  :func:`fused_channelize_planes`.
 
 Each wrapper takes its plain version (re-exported here) only for a tensor
 on the CPU. On a CUDA tensor it launches the kernel or raises: nothing
@@ -21,7 +24,8 @@ import math
 
 import torch
 
-from ..channelizer import pfb_fir_planes  # noqa: F401  (plain version)
+from ..channelizer import fused_channelize_planes, pfb_fir_planes  # noqa: F401  (plain versions)
+from ..channelizer import fused_out_len
 from ..rx.frontend import check_lags
 from ..rx.frontend import detection_metrics_planes, lag_rows_planes  # noqa: F401  (plain versions)
 
@@ -241,3 +245,101 @@ def lag_rows_kernel(xf: torch.Tensor, sps_min: int, lags):
 
 
 lag_rows_kernel.launches = 0
+
+
+def bind_fused_lib(lib):
+    """Declare the C entry points of a library built from
+    ``csrc/fused_chan.cu`` (the port's, or a tuning variant's); returns
+    ``lib``."""
+    lib.fused_chan_launch.argtypes = (
+        [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
+        + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2 + [ctypes.c_longlong]
+        + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
+                                   ctypes.c_void_p])
+    lib.fused_chan_launch.restype = ctypes.c_int
+    lib.fused_chan_error_string.argtypes = [ctypes.c_int]
+    lib.fused_chan_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.cache
+def _fused_lib():
+    from ._build import load
+
+    return bind_fused_lib(load("fused_chan"))
+
+
+def fused_chan_launch(lib, xf, g2, ramp, decimation: int, n_taps: int, out) -> None:
+    """Launch ``lib``'s fused channelizer kernel on checked CUDA tensors
+    (see :func:`fused_channelize_kernel`) into ``out`` ``[C, 2, n_out]``,
+    on the planes' device and its current stream; raises
+    ``RuntimeError`` when the launch fails."""
+    o_re, o_im, i_re, i_im = ramp
+    C, _, n_out = out.shape
+    with torch.cuda.device(xf.device):  # the C entry launches on the current device
+        rc = lib.fused_chan_launch(
+            xf.data_ptr(), xf.stride(0), xf.shape[-1], g2.data_ptr(), C, decimation,
+            -(-n_taps // decimation), o_re.data_ptr(), o_im.data_ptr(), o_re.shape[-1],
+            i_re.data_ptr(), i_im.data_ptr(), i_re.shape[-1], out.data_ptr(), n_out,
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        msg = lib.fused_chan_error_string(rc).decode()
+        raise RuntimeError(f"fused_chan launch failed: {msg} ({rc})")
+
+
+def fused_channelize_kernel(xf: torch.Tensor, g2: torch.Tensor, ramp, decimation: int,
+                            n_taps: int) -> torch.Tensor:
+    """Fused mix + decimating FIR + output ramp of packed wideband planes
+    ``[2, L]`` float32 for all ``C`` channels of the folded FIR matrix
+    ``g2`` ``[2C, K*2D]`` (``K = ceil(n_taps / D)``) and the ramp factors
+    ``(o_re, o_im, i_re, i_im)`` ``[C, nb]``, ``[C, nb]``, ``[C, tile]``,
+    ``[C, tile]`` float32 (``nb = ceil(n_out / tile)``): ``[C, 2, n_out]``
+    float32, ``n_out = (L - n_taps) // D + 1``, as
+    :func:`fused_channelize_planes` computes it.
+
+    CPU tensors: the plain version. CUDA tensors: the kernel, which reads
+    the planes where they lie (each plane's samples contiguous, any plane
+    stride); the tables must be contiguous. Raises on any other dtype,
+    shape, layout or device, and when the block is shorter than the filter.
+    """
+    tens = (xf, g2, *ramp)
+    if len(ramp) != 4 or not all(isinstance(t, torch.Tensor) for t in tens):
+        raise TypeError("fused_channelize_kernel takes torch tensors and four ramp factors")
+    if any(t.dtype != torch.float32 for t in tens):
+        raise TypeError(f"planes, g2 and ramp must be float32, not {[t.dtype for t in tens]}")
+    if any(t.device != xf.device for t in tens):
+        raise ValueError(f"planes on {xf.device}, tables on {[str(t.device) for t in tens[1:]]}")
+    if xf.ndim != 2 or xf.shape[0] != 2:
+        raise ValueError(f"expected packed planes [2, L], got {tuple(xf.shape)}")
+    D = int(decimation)
+    n_taps = int(n_taps)
+    if D < 1 or n_taps < 1:
+        raise ValueError(f"need decimation >= 1 and n_taps >= 1, got {D}, {n_taps}")
+    K = -(-n_taps // D)
+    if g2.ndim != 2 or g2.shape[0] % 2 or g2.shape[0] < 2 or g2.shape[1] != K * 2 * D:
+        raise ValueError(f"g2 must be [2C, {K * 2 * D}] for D={D}, {n_taps} taps; "
+                         f"got {tuple(g2.shape)}")
+    C = g2.shape[0] // 2
+    L = xf.shape[-1]
+    n_out = fused_out_len(L, n_taps, D)
+    o_re, o_im, i_re, i_im = ramp
+    tile = i_re.shape[-1] if i_re.ndim == 2 else 0
+    nb = -(-n_out // tile) if tile else 0
+    if (tile < 1 or any(t.shape != (C, nb) for t in (o_re, o_im))
+            or any(t.shape != (C, tile) for t in (i_re, i_im))):
+        raise ValueError(f"ramp factors must be [{C}, nb], [{C}, nb], [{C}, tile], [{C}, tile] "
+                         f"with nb = ceil({n_out} / tile); got "
+                         f"{[tuple(t.shape) for t in ramp]}")
+    if xf.device.type == "cpu":
+        return fused_channelize_planes(xf, g2, ramp, D, n_taps, tile)
+    if xf.device.type != "cuda":
+        raise ValueError(f"no fused channelizer kernel for device {xf.device}")
+    if xf.stride(1) != 1 or not all(t.is_contiguous() for t in tens[1:]):
+        raise ValueError("the fused channelizer kernel reads contiguous plane rows and tables")
+    out = torch.empty((C, 2, n_out), dtype=torch.float32, device=xf.device)
+    fused_chan_launch(_fused_lib(), xf, g2, ramp, D, n_taps, out)
+    fused_channelize_kernel.launches += 1
+    return out
+
+
+fused_channelize_kernel.launches = 0

@@ -1,6 +1,6 @@
 """The port on the card: each kernel against its plain torch version, and
-the dense, wideband and multi-SF gateway receivers on the card against the
-port on the CPU.
+the dense, wideband, multi-SF gateway and plan gateway receivers on the
+card against the port on the CPU.
 
 Every test here needs a CUDA device and skips without one. The file
 imports neither JAX nor the JAX package, so it runs where only torch is
@@ -12,17 +12,22 @@ Tolerances: corr atol 2e-5, energies rtol 1e-5 (float32 sums in another
 order); the polyphase FIR float32 within ``1e-6 * sum_j |h_j| * max|x|``
 and bf16 within one bf16 ulp (``2^-7`` of the plain result); the
 multi-lag rows' energies rtol 1e-5 and each lag product within ``1e-5 *
-sqrt(e_r * e_{r+l})``; receiver results as in test_torch_dense.py."""
+sqrt(e_r * e_{r+l})``; the fused channelizer within ``2 * (2DK + 4) *
+2^-24 * sum|g2 row| * max|x|`` (twice the worst-case float32 rounding of
+a sum of 2DK products, plus the ramp's products); receiver results as in
+test_torch_dense.py."""
 
 import numpy as np
 import pytest
 import torch
 
-from lora_tpu_torch import (DenseReceiver, LoRaConfig, MultiSFWidebandReceiver,
+from lora_tpu_torch import (DenseReceiver, LoRaConfig, MultiSFWidebandReceiver, PlanGateway,
                             WidebandReceiver)
-from lora_tpu_torch.channelizer import pfb_channel_freqs
+from lora_tpu_torch.channelizer import fused_tables, pfb_channel_freqs
 from lora_tpu_torch.ops.cuda_kernels import (detection_metrics_kernel,
                                              detection_metrics_planes,
+                                             fused_channelize_kernel,
+                                             fused_channelize_planes,
                                              lag_rows_kernel, lag_rows_planes,
                                              pfb_fir_kernel, pfb_fir_planes)
 from lora_tpu_torch.ops.xfer import pack_iq
@@ -300,6 +305,89 @@ def test_gateway_on_card_matches_cpu(cuda_device, shared):
     want = cpu.run(x)
     assert [(f.tap_header.sf, f.channel, f.payload[:2]) for f in want] == \
         [(sf, c, bytes([sf, c])) for sf, c in placements]
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert (g.channel, g.sample_index, g.phy_header.to_bytes(), g.payload,
+                g.tap_header.frequency, g.tap_header.sf) == \
+            (w.channel, w.sample_index, w.phy_header.to_bytes(), w.payload,
+             w.tap_header.frequency, w.tap_header.sf)
+        assert g.snr == pytest.approx(w.snr, rel=1e-4)
+        assert g.cfo == pytest.approx(w.cfo, abs=1.0)
+
+
+def _fused_tables(C, D, ntaps, L, device):
+    rate = D * 250e3
+    offs = np.linspace(-0.4 * rate, 0.4 * rate, C)
+    taps = np.random.default_rng(C + D).normal(0, 0.1, ntaps).astype(np.float32)
+    return fused_tables(offs, rate, taps, D, L, device)
+
+
+# C, D, taps, L: the EU868 and US915 plan shapes, a ragged L, C = 1, D = 1,
+# and past the TPU kernel's gate (K = 151; 2DK = 2016)
+FUSED_GEOMS = [(7, 8, 77, 3604480), (23, 32, 309, 14417920), (7, 8, 77, 100003),
+               (1, 4, 19, 4429), (2, 1, 31, 3000), (2, 2, 301, 5000), (3, 16, 1001, 40000)]
+
+
+@pytest.mark.parametrize("C,D,ntaps,L", FUSED_GEOMS)
+def test_fused_chan_kernel_matches_plain(cuda_device, C, D, ntaps, L):
+    g2, ramp = _fused_tables(C, D, ntaps, L, cuda_device)
+    x = torch.randn((2, L + 5), device=cuda_device)[:, :L]     # a plane stride past L
+    before = fused_channelize_kernel.launches
+    got = fused_channelize_kernel(x, g2, ramp, D, ntaps)
+    torch.cuda.synchronize()
+    assert fused_channelize_kernel.launches == before + 1
+    want = fused_channelize_planes(x, g2, ramp, D, ntaps, 1024)
+    assert got.shape == want.shape == (C, 2, (L - ntaps) // D + 1) and got.is_contiguous()
+    bound = 2 * (g2.shape[1] + 4) * 2.0 ** -24 * float(g2.abs().sum(1).max()) \
+        * float(x.abs().max())
+    assert float((got - want).abs().max()) <= bound
+
+
+@pytest.mark.parametrize("case", ["strided-rows", "g2-shape", "g2-on-cpu", "f64-ramp"])
+def test_fused_chan_kernel_refuses(cuda_device, case):
+    g2, ramp = _fused_tables(3, 8, 77, 20000, cuda_device)
+    x = torch.zeros((2, 20000), device=cuda_device)
+    if case == "strided-rows":
+        x = torch.zeros((2, 40000), device=cuda_device)[:, ::2]
+    elif case == "g2-shape":
+        g2 = g2[:, :-8]
+    elif case == "g2-on-cpu":
+        g2 = g2.cpu()
+    else:
+        ramp = (ramp[0].double(),) + ramp[1:]
+    before = fused_channelize_kernel.launches
+    with pytest.raises((TypeError, ValueError)):
+        fused_channelize_kernel(x, g2, ramp, 8, 77)
+    assert fused_channelize_kernel.launches == before
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_plan_gateway_on_card_matches_cpu(cuda_device, fused):
+    """tests/test_plans.py:24-60's capture: EU868 at 868.3 MHz, 2 Msps, one
+    packet at SF7 and one at SF8."""
+    center, rate = 868.3e6, 2e6
+    kw = dict(sfs=(7, 8), pool=8, max_candidates=2, max_symbols=16, sfd_search=10,
+              demod_method="fft", fused=fused)
+    gpu = PlanGateway("EU868", center, rate, device=cuda_device, **kw)
+    cpu = PlanGateway("EU868", center, rate, device="cpu", **kw)
+    rng = np.random.default_rng(5)
+    L = 40 * 4096
+    x = rng.normal(0, 1e-4, L) + 1j * rng.normal(0, 1e-4, L)
+    t = np.arange(L, dtype=np.float64)
+    for sf, f_abs in ((7, 868.1e6), (8, 868.5e6)):
+        wcfg = LoRaConfig(sf=sf, cr=4, samp_rate=rate, crc=True, sync_word=0x34)
+        pkt = modulate_frame(wcfg, bytes([sf, 0x42]), snr_db=None)
+        pos = 2 * wcfg.samples_per_symbol
+        x[pos:pos + len(pkt)] += pkt * np.exp(2j * np.pi * (f_abs - center) / rate
+                                              * t[pos:pos + len(pkt)])
+    x = x.astype(np.complex64)
+    before = (fused_channelize_kernel.launches, lag_rows_kernel.launches)
+    got = gpu.run(x)
+    assert (fused_channelize_kernel.launches, lag_rows_kernel.launches) == \
+        (before[0] + fused, before[1] + 1)
+    want = cpu.run(x)
+    assert [(f.tap_header.sf, f.tap_header.frequency, f.payload[:2]) for f in want] == \
+        [(7, 868100000, bytes([7, 0x42])), (8, 868500000, bytes([8, 0x42]))]
     assert len(got) == len(want)
     for g, w in zip(got, want):
         assert (g.channel, g.sample_index, g.phy_header.to_bytes(), g.payload,

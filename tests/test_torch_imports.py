@@ -29,6 +29,7 @@ def test_import_leaves_jax_and_lora_tpu_out():
         "    importlib.import_module(m.name)\n"
         "lora_tpu_torch.DenseReceiver, lora_tpu_torch.WidebandReceiver\n"
         "lora_tpu_torch.PolyphaseChannelizer, lora_tpu_torch.MultiSFWidebandReceiver\n"
+        "lora_tpu_torch.PlanGateway\n"
         f"bad = sorted(n for n in sys.modules if n.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -94,11 +95,13 @@ def test_wrapper_refuses_bad_geometry(shape, sps):
 
 def test_package_exports():
     from lora_tpu_torch.channelizer import PolyphaseChannelizer
+    from lora_tpu_torch.plans import PlanGateway
     from lora_tpu_torch.wideband import MultiSFWidebandReceiver, WidebandReceiver
 
     assert lora_tpu_torch.LoRaConfig is LoRaConfig
     assert lora_tpu_torch.WidebandReceiver is WidebandReceiver
     assert lora_tpu_torch.MultiSFWidebandReceiver is MultiSFWidebandReceiver
     assert lora_tpu_torch.PolyphaseChannelizer is PolyphaseChannelizer
+    assert lora_tpu_torch.PlanGateway is PlanGateway
     with pytest.raises(AttributeError):
         lora_tpu_torch.NoSuchReceiver
