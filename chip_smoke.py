@@ -7,13 +7,15 @@ Phases, each of which passes or exits non-zero:
 
 1. the card: its name, and name + power limit from ``nvidia-smi``; the
    float32 matmul settings (TF32 off);
-2. build every kernel from ``lora_tpu_torch/csrc``, one ``nvcc`` per
-   source, all started together;
+2. build every kernel from ``lora_tpu_torch/csrc`` (six sources), one
+   ``nvcc`` per source, all started together;
 3. each kernel against its plain torch version on the card, float32 and
    bfloat16, at the main paths' shapes and at ragged and odd geometries
    (the multi-lag kernel also at both plan gateways' planes; the fused
    plan channelizer, float32 only, at both plan shapes, a ragged L, C =
-   1, D = 2, D = 1 and past the TPU kernel's gate);
+   1, D = 2, D = 1 and past the TPU kernel's gate); the detection
+   metric's staged "tile" kernel and its window-major kernel at the same
+   shapes as the "pp" kernel, the dense bench block's included;
 4. the dense path at full width: the dense receiver (fft engine) on the
    64-channel x 2048-symbol SF7 @ 1 Msps block, float32 then bfloat16
    planes, with the decode gate and the kernels' launch counts; then
@@ -45,7 +47,15 @@ Phases, each of which passes or exits non-zero:
 9. where one call's device time goes (torch.profiler), and the device's
    idle share, by layer for the wideband, gateway and US915 plan calls;
    then phase 8 again, after the profiler;
-10. each kernel's time beside its bound, its plain version's time and a
+10. the kernel studies at their defaults (``lora_tpu_torch.tools``:
+   ``profile_detect``, "pp" against "tile"; ``profile_packing``,
+   plane-major against window-major), each launching its kernels once a
+   call; the per-stage timing study (``profiling.timing_table()`` at the
+   CLI defaults, every stage > 0, its detect stage through the "pp"
+   kernel) and ``pfb_timings(1024)``; the gradient engine on the dense
+   bench block (the decode gate, ``run()`` against the CPU, its median
+   call beside the fft engine's);
+11. each kernel's time beside its bound, its plain version's time and a
    library call's time where one computes the same function.
 
 The line before the last is the ``kernels`` JSON line; the last line is
@@ -91,6 +101,14 @@ def check(cond, msg: str) -> None:
         raise SystemExit(f"chip_smoke: FAIL: {msg}")
 
 
+_START = time.perf_counter()
+
+
+def stamp(what: str) -> None:
+    """Print the seconds since the script started, after ``what``."""
+    print(f"[{time.perf_counter() - _START:.1f} s] {what} done")
+
+
 def cuda_ms(fn, n: int) -> float:
     """Mean device time of ``fn()`` over ``n`` calls, by CUDA events."""
     import torch
@@ -128,29 +146,34 @@ def phase_device():
     return name, smi_line
 
 
-def counts() -> dict:
+def _wrappers() -> dict:
     from lora_tpu_torch.ops import cuda_kernels as ck
 
-    return {"det_metrics": ck.detection_metrics_kernel.launches,
-            "pfb_fir": ck.pfb_fir_kernel.launches,
-            "lag_rows": ck.lag_rows_kernel.launches,
-            "fused_chan": ck.fused_channelize_kernel.launches}
+    return {"det_metrics": ck.detection_metrics_kernel,
+            "pfb_fir": ck.pfb_fir_kernel,
+            "lag_rows": ck.lag_rows_kernel,
+            "fused_chan": ck.fused_channelize_kernel,
+            "det_tile": ck.detection_metrics_tile_kernel,
+            "det_wm": ck.detection_metrics_wm_kernel}
+
+
+def counts(names=("det_metrics", "pfb_fir", "lag_rows", "fused_chan")) -> dict:
+    """The launch counts of the kernels ``names`` (the four receiver
+    kernels by default; the study paths read theirs by name)."""
+    w = _wrappers()
+    return {n: w[n].launches for n in names}
 
 
 def zero_counts() -> None:
-    from lora_tpu_torch.ops import cuda_kernels as ck
-
-    ck.detection_metrics_kernel.launches = 0
-    ck.pfb_fir_kernel.launches = 0
-    ck.lag_rows_kernel.launches = 0
-    ck.fused_channelize_kernel.launches = 0
+    for w in _wrappers().values():
+        w.launches = 0
 
 
 def phase_build():
     from lora_tpu_torch.ops._build import build
 
     t0 = time.perf_counter()
-    built = build("det_metrics", "pfb_fir", "lag_rows", "fused_chan")
+    built = build("det_metrics", "pfb_fir", "lag_rows", "fused_chan", "det_tile", "det_wm")
     print(f"build: {', '.join(built)} (one nvcc each, started together) in "
           f"{time.perf_counter() - t0:.1f} s")
     for name, (_, log) in built.items():
@@ -391,6 +414,70 @@ def phase_fused_vs_plain() -> float:
     return worst
 
 
+def phase_variants_vs_plain() -> dict:
+    """K2 (the "tile" variant) against ``detection_metrics_planes`` and K6
+    against ``detection_metrics_wm_planes`` on the card, at K1's shapes:
+    sps 1024 / 8192 / 32768, a ragged window count with a tail, sps off the
+    128 grid, an odd sps (scalar loads) and the dense bench block; K2 also
+    on bfloat16 planes (upcast to float32 first), K6 also at window counts
+    that are a multiple of no tile (its planes are the float32 planes in
+    window-major form, made on the card). Tolerances as K1's. Returns the
+    largest corr error of each."""
+    import torch
+
+    from lora_tpu_torch.ops.cuda_kernels import (detection_metrics_kernel,
+                                                 detection_metrics_planes,
+                                                 detection_metrics_tile_kernel,
+                                                 detection_metrics_wm_kernel,
+                                                 detection_metrics_wm_planes)
+
+    gen = torch.Generator(device="cuda").manual_seed(5678)
+    geoms = [(64, 1024, 2048, 0), (2, 8192, 16, 0), (2, 32768, 8, 0), (3, 1024, 37, 341),
+             (2, 1000, 40, 0), (2, 1001, 9, 5)]
+    worst = {"det_tile": 0.0, "det_wm": 0.0}
+
+    def held(name, label, got, ref, shape):
+        for g in got:
+            check(tuple(g.shape) == shape and g.dtype == torch.float32,
+                  f"{label}: {tuple(g.shape)} {g.dtype}, expected {shape} float32")
+            check(bool(torch.isfinite(g).all()), f"{label}: non-finite output")
+        err_c = float((got[0] - ref[0]).abs().max())
+        err_e = max(float(((g - r).abs() / r.abs()).max()) for g, r in zip(got[1:], ref[1:]))
+        print(f"{label}: corr max abs err {err_c:.3g}, energy max rel err {err_e:.3g}")
+        check(err_c <= TOL_CORR_ATOL, f"{label}: corr error {err_c} > {TOL_CORR_ATOL}")
+        check(err_e <= TOL_ENER_RTOL, f"{label}: energy error {err_e} > {TOL_ENER_RTOL}")
+        worst[name] = max(worst[name], err_c)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for C, sps, k1, tail in geoms:
+            xf = torch.randn((C, 2, k1 * sps + tail), generator=gen, device="cuda").to(dtype)
+            before = detection_metrics_tile_kernel.launches
+            got = detection_metrics_kernel(xf, sps, variant="tile")
+            torch.cuda.synchronize()
+            check(detection_metrics_tile_kernel.launches == before + 1,
+                  "the det_tile launch count did not rise")
+            held("det_tile", f"det_tile {str(dtype)[6:]} C={C} sps={sps} K1={k1} tail={tail}",
+                 got, detection_metrics_planes(xf, sps), (C, k1 - 1))
+            del xf, got
+    for C, sps, k1 in [(g[0], g[1], g[2]) for g in geoms] + [(3, 128, 1031), (2, 256, 4099)]:
+        xw = torch.randn((C, k1, 2, sps), generator=gen, device="cuda")
+        before = detection_metrics_wm_kernel.launches
+        got = detection_metrics_wm_kernel(xw)
+        torch.cuda.synchronize()
+        check(detection_metrics_wm_kernel.launches == before + 1,
+              "the det_wm launch count did not rise")
+        ref = detection_metrics_wm_planes(xw)
+        held("det_wm", f"det_wm float32 C={C} K1={k1} sps={sps}", got, ref, (C, k1))
+        last = got[0][:, -1]
+        check(bool(((last - 1.0).abs() <= TOL_CORR_ATOL).all()),
+              "det_wm: the last window does not pair with itself")
+        del xw, got, ref
+    torch.cuda.empty_cache()
+    print(f"det_tile / det_wm worst corr error over the shapes: {worst['det_tile']:.3g} / "
+          f"{worst['det_wm']:.3g} (tolerance {TOL_CORR_ATOL})")
+    return worst
+
+
 def bench_block():
     """The dense bench block: SF7 CR4/8 BW125 @ 1 Msps, 64 channels x 2048
     symbols, every channel carrying back-to-back 40 dB packets with a
@@ -461,21 +548,22 @@ def phase_main_path(cfg, x, expected):
     return rx, planes, launches
 
 
-def phase_run_small(cfg, x, pkt_len):
+def phase_run_small(cfg, x, pkt_len, method: str = "fft"):
     """``run()`` on a small block of whole packets, on the card and on the
-    CPU: the frames must agree field by field (the CPU runs the plain
-    version of every kernel)."""
+    CPU, with the ``method`` engine: the frames must agree field by field
+    (the CPU runs the plain version of every kernel)."""
     from lora_tpu_torch import DenseReceiver
 
     small = x[:2, : 2 * pkt_len + 997]
     frames = {}
     for dev in ("cuda", "cpu"):
         rx = DenseReceiver(cfg, max_candidates=8, max_symbols=24,
-                           sfd_search=12, demod_method="fft", device=dev)
+                           sfd_search=12, demod_method=method, device=dev)
         frames[dev] = rx.run(small)
-    check(len(frames["cuda"]) > 0, "run(): no frames")
-    same_frames(frames["cuda"], frames["cpu"], "run()")
-    print(f"run(): {len(frames['cuda'])} frames on a 2-channel block, equal to the CPU's")
+    label = "run()" if method == "fft" else f"run() {method}"
+    check(len(frames["cuda"]) > 0, f"{label}: no frames")
+    same_frames(frames["cuda"], frames["cpu"], label)
+    print(f"{label}: {len(frames['cuda'])} frames on a 2-channel block, equal to the CPU's")
 
 
 def same_frames(fg, fc, label: str) -> None:
@@ -982,6 +1070,84 @@ def phase_plan_run_small():
           "equal to the CPU's")
 
 
+def phase_tools() -> dict:
+    """The two kernel studies at their defaults, each run with every count
+    zeroed just before it and read just after: ``profile_detect`` must
+    launch K1 and K2 once for each of its calls, ``profile_packing`` K1 and
+    K6, and no other kernel. Returns ``{tool: (result, counts)}``."""
+    from lora_tpu_torch.tools import profile_detect, profile_packing
+
+    out = {}
+    for tool, want in ((profile_detect, {"pp": "det_metrics", "tile": "det_tile"}),
+                       (profile_packing, {"pp": "det_metrics", "wm": "det_wm"})):
+        name = tool.__name__.rsplit(".", 1)[-1]
+        zero_counts()
+        res = tool.main([])
+        n = counts(tuple(_wrappers()))
+        expect = {k: 0 for k in n}
+        expect.update({kernel: res["calls"][v] for v, kernel in want.items()})
+        print(f"{name}: launches {n}")
+        check(n == expect, f"{name}: expected launches {expect}, got {n}")
+        out[name] = (res, n)
+    return out
+
+
+def phase_timing_study() -> dict:
+    """``timing_table()`` at the CLI defaults (SF7 and SF12, gradient and
+    fft, 1 Msps) with ``iters=2``: every stage must be > 0, and the detect
+    stages must have gone through the "pp" kernel. Then
+    ``pfb_timings(1024)``. Returns the launch counts of the table's run."""
+    from lora_tpu_torch.profiling import pfb_timings, timing_table
+
+    zero_counts()
+    got = {}
+    table = timing_table(iters=2, timings=got)
+    n = counts(tuple(_wrappers()))
+    print(table)
+    print(f"timing study: launches {n}")
+    check(sorted(got) == [(sf, m) for sf in (7, 12) for m in ("fft", "gradient")],
+          f"timing study: configs {sorted(got)}")
+    for key, t in got.items():
+        bad = [st for st, v in t.items() if not v > 0.0]
+        check(not bad, f"timing study {key}: stages {bad} not > 0")
+    # each detect stage: one warm-up call and rounds (3) x iters (2)
+    want = dict(dict.fromkeys(n, 0), det_metrics=4 * 7)
+    check(n == want, f"timing study: expected launches {want}, got {n}")
+    pfb = pfb_timings(1024, iters=2)
+    print(f"pfb_timings(1024): f32 {pfb['pfb_f32'] * 1e3:.4f} ms/Msample, "
+          f"bf16 {pfb['pfb_bf16'] * 1e3:.4f} ms/Msample")
+    return n
+
+
+def phase_gradient(cfg, expected, fft_rx, fft_planes):
+    """The gradient engine on the dense bench block, float32 planes: the
+    decode gate and one K1 launch a call; its median call time beside the
+    fft engine's on the same planes (a smoke reading). Returns the
+    receiver, which the profile phase profiles."""
+    import torch
+
+    from lora_tpu_torch import DenseReceiver
+
+    rx = DenseReceiver(cfg, max_candidates=8, max_symbols=24, sfd_search=12,
+                       demod_method="gradient")
+    check(rx.method == "gradient" and rx.fast_sync, "the gradient engine was not selected")
+    xd = fft_planes
+    torch.cuda.synchronize()
+    zero_counts()
+    res = rx.process(xd)
+    torch.cuda.synchronize()
+    n = counts(tuple(_wrappers()))
+    print(f"gradient engine float32: launches {n}")
+    check(n == dict(dict.fromkeys(n, 0), det_metrics=1),
+          f"gradient engine: expected one det_metrics launch, got {n}")
+    gate(res, expected, "gradient float32")
+    grad_ms = sorted(call_ms(lambda: rx.process(xd), 5))[2]
+    fft_ms = sorted(call_ms(lambda: fft_rx.process(xd), 5))[2]
+    print(f"gradient engine: median call {grad_ms:.3f} ms on the bench block; fft engine "
+          f"{fft_ms:.3f} ms on the same planes (5 synchronised calls each)")
+    return rx
+
+
 def host_syncs(fn) -> list:
     """Host-device synchronisations inside ``fn()``, as torch's sync debug
     mode reports them: one ``file:line: message`` each. The mode's own
@@ -1230,9 +1396,71 @@ def fused_library_call(gw, xd):
     return fn, torch.hypot(y[:, 0], y[:, 1])
 
 
+def detection_bound(shape, in_bytes: int, out_floats: int):
+    """``(bound ms, bytes ms, ops ms, "bytes" | "operations")`` of a
+    detection metric over planes of ``shape`` (``in_bytes`` a sample
+    plane value): the planes read once and ``out_floats`` float32 outputs
+    written once; 12 float32 flops a complex sample (dot re/im, energy)."""
+    import math
+
+    n = math.prod(shape)
+    t_bytes = (n * in_bytes + out_floats * 4) / HBM_BYTES_PER_S * 1e3
+    t_ops = 12 * (n // 2) / F32_FLOPS_PER_S * 1e3
+    return max(t_bytes, t_ops), t_bytes, t_ops, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def phase_variant_times(xd, sps: int) -> dict:
+    """K1, K2 and K6 timed in one run, in turns (K1, K2, K6, K6, K2, K1),
+    on the dense bench block's float32 planes ``xd`` (K6 on their
+    window-major copy, made on the card) and at the studies' 268 MB shape;
+    beside each one's bound and, on the bench block, K2's and K6's plain
+    versions. Returns ``{name: stats}`` of the bench block."""
+    import torch
+
+    from lora_tpu_torch.ops.cuda_kernels import (detection_metrics_kernel,
+                                                 detection_metrics_planes,
+                                                 detection_metrics_wm_kernel,
+                                                 detection_metrics_wm_planes)
+
+    gen = torch.Generator(device="cuda").manual_seed(99)
+    out = {}
+    shapes = {"bench block": xd,
+              "studies' shape": torch.randn((16, 2, 2048 * sps), generator=gen, device="cuda")}
+    for label, x in shapes.items():
+        C, _, L = x.shape
+        K1 = L // sps
+        xw = x[..., :K1 * sps].reshape(C, 2, K1, sps).permute(0, 2, 1, 3).contiguous()
+        fns = {"det_metrics": lambda: detection_metrics_kernel(x, sps),
+               "det_tile": lambda: detection_metrics_kernel(x, sps, variant="tile"),
+               "det_wm": lambda: detection_metrics_wm_kernel(xw)}
+        ms = {k: [] for k in fns}
+        for k in ("det_metrics", "det_tile", "det_wm", "det_wm", "det_tile", "det_metrics"):
+            ms[k].append(cuda_ms(fns[k], 20))
+        bounds = {"det_metrics": detection_bound(x.shape, 4, C * (2 * K1 - 1)),
+                  "det_tile": detection_bound(x.shape, 4, C * (2 * K1 - 1)),
+                  "det_wm": detection_bound(xw.shape, 4, C * 2 * K1)}
+        print(f"detection kernels float32 at {list(x.shape)} ({label}, "
+              f"{x.numel() * 4 / 1e9:.3f} GB), two turns each: "
+              + "; ".join(f"{k} {a:.4f} / {b:.4f} ms (bound {bounds[k][0]:.4f}, by "
+                          f"{bounds[k][3]})" for k, (a, b) in ms.items()))
+        if label == "bench block":
+            plain = {"det_tile": cuda_ms(lambda: detection_metrics_planes(x, sps), 5),
+                     "det_wm": cuda_ms(lambda: detection_metrics_wm_planes(xw), 5)}
+            for k in ("det_tile", "det_wm"):
+                out[k] = dict(ms=min(ms[k]), plain_ms=plain[k], bound_ms=bounds[k][0],
+                              bound_by=bounds[k][3])
+                print(f"{k} float32 at the bench block: kernel {out[k]['ms']:.4f} ms (best "
+                      f"turn), plain {plain[k]:.4f} ms, bound {bounds[k][0]:.4f} ms (bytes "
+                      f"{bounds[k][1]:.4f}, ops {bounds[k][2]:.4f})")
+        del xw
+    del shapes
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_kernel_times(rx, planes, launches, worst_err, receivers, xd_wide,
                        wide_launches, worst_fir, gw, xd_gw, gw_launches, worst_lag,
-                       plans, worst_fused):
+                       plans, worst_fused, variants, tools, worst_variants):
     import torch
 
     from lora_tpu_torch.ops.cuda_kernels import (detection_metrics_kernel,
@@ -1405,7 +1633,21 @@ def phase_kernel_times(rx, planes, launches, worst_err, receivers, xd_wide,
         "bound_ms": fused["US915"]["bound_ms"],
         "bound_by": fused["US915"]["bound_by"],
         "library_ms": fused["US915"]["library_ms"],
-    }]}))
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": f"lora_tpu_torch/csrc/{name}.cu",
+        "replaces": replaces,
+        "launches": tools[tool][1][name],
+        "max_abs_err": worst_variants[name],
+        "ms": variants[name]["ms"],
+        "plain_ms": variants[name]["plain_ms"],
+        "bound_ms": variants[name]["bound_ms"],
+        "bound_by": variants[name]["bound_by"],
+        "library_ms": None,
+    } for name, tool, replaces in (
+        ("det_tile", "profile_detect", "lora_tpu/ops/pallas_kernels.py:28"),
+        ("det_wm", "profile_packing", "tools/profile_packing.py:32"))]}))
 
 
 def main() -> int:
@@ -1415,19 +1657,33 @@ def main() -> int:
 
     device_name, smi_line = phase_device()
     phase_build()
+    stamp("phase_build")
     worst = phase_kernel_vs_plain()
     worst_fir = phase_pfb_vs_plain()
     worst_lag = phase_lag_vs_plain()
     worst_fused = phase_fused_vs_plain()
+    worst_variants = phase_variants_vs_plain()
+    stamp("phase_variants_vs_plain")
     cfg, x, expected, pkt_len = bench_block()
     rx, planes, launches = phase_main_path(cfg, x, expected)
     phase_run_small(cfg, x, pkt_len)
+    stamp("phase_run_small")
+    tools = phase_tools()
+    stamp("phase_tools")
+    phase_timing_study()
+    stamp("phase_timing_study")
+    grad_rx = phase_gradient(cfg, expected, rx, planes[torch.float32])
+    phase_run_small(cfg, x, pkt_len, method="gradient")
+    stamp("phase_run_small")
     receivers, xd_wide, wide_launches = phase_wideband()
     phase_wideband_run_small()
+    stamp("phase_wideband_run_small")
     gw, xd_gw, gw_launches = phase_gateway()
     phase_gateway_run_small()
+    stamp("phase_gateway_run_small")
     plans = phase_plan_gateway()
     phase_plan_run_small()
+    stamp("phase_plan_run_small")
     for when in ("before profile", "after profile"):
         phase_throughput("dense_rx_throughput", dense_calls(rx, planes), when,
                          device_name, smi_line)
@@ -1439,13 +1695,21 @@ def main() -> int:
             phase_throughput(f"plan_gateway_{plan.lower()}_6sf_throughput",
                              plan_calls(pgw, pxd), when, device_name, smi_line)
         if when == "before profile":
+            # the profiler first runs after every path has run: kernels of
+            # libraries loaded after its first use went untraced
             phase_profile("dense", dense_calls(rx, planes))
+            phase_profile("dense gradient",
+                          {"float32": (grad_rx.process, planes[torch.float32], None)})
             phase_profile_wideband(receivers, xd_wide)
             phase_profile_gateway(gw, xd_gw)
             phase_profile("plan EU868", plan_calls(*plans["EU868"][:2]))
             phase_profile_plan(*plans["US915"][:2])
+        stamp(f"throughput ({when})")
+    variants = phase_variant_times(planes[torch.float32], rx.sps)
+    stamp("phase_variant_times")
     phase_kernel_times(rx, planes, launches, worst, receivers, xd_wide, wide_launches,
-                       worst_fir, gw, xd_gw, gw_launches, worst_lag, plans, worst_fused)
+                       worst_fir, gw, xd_gw, gw_launches, worst_lag, plans, worst_fused,
+                       variants, tools, worst_variants)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

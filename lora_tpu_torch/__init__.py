@@ -7,7 +7,8 @@ the card unless the caller passes ``device="cpu"``.
 
 Ported so far:
 
-- the dense receiver on the fft engine (``DenseReceiver``), with the
+- the dense receiver (``DenseReceiver``) on both engines, the gradient
+  engine (the default at decimation >= 4) and the fft engine, with the
   detection metric as a CUDA kernel (``csrc/det_metrics.cu``), per-channel
   lanes or one global candidate pool, the fft drift pass and the no-fold
   demod of SF12 at 250 ksps;
@@ -18,7 +19,12 @@ Ported so far:
   detection from one multi-lag CUDA kernel (``csrc/lag_rows.cu``);
 - the LoRaWAN plan gateway (``PlanGateway``): every in-band channel of a
   regional plan at every SF, with the fused mix + decimating FIR + output
-  ramp channelizer as a CUDA kernel (``csrc/fused_chan.cu``).
+  ramp channelizer as a CUDA kernel (``csrc/fused_chan.cu``);
+- the detection metric's staged "tile" kernel (``csrc/det_tile.cu``) and
+  its window-major kernel (``csrc/det_wm.cu``), with the studies that
+  time them against the "pp" kernel (``lora_tpu_torch.tools``), and the
+  per-stage timing study (``profiling``; ``python -m lora_tpu_torch.cli
+  timings``).
 """
 
 __version__ = "0.1.0"

@@ -1,8 +1,13 @@
 """Wrappers of the port's hand-written CUDA kernels.
 
 - :func:`detection_metrics_kernel` launches ``csrc/det_metrics.cu`` (the
-  Hopper counterpart of the TPU kernel ``_det_kernel_pp``); its plain
-  torch version is :func:`detection_metrics_planes`.
+  Hopper counterpart of the TPU kernel ``_det_kernel_pp``), or with
+  ``variant="tile"`` :func:`detection_metrics_tile_kernel`, which launches
+  ``csrc/det_tile.cu`` (the counterpart of ``_det_kernel``); the plain
+  torch version of both is :func:`detection_metrics_planes`.
+- :func:`detection_metrics_wm_kernel` launches ``csrc/det_wm.cu`` (the
+  counterpart of ``_det_kernel_wm``, on window-major IQ); its plain
+  version is :func:`detection_metrics_wm_planes`.
 - :func:`pfb_fir_kernel` launches ``csrc/pfb_fir.cu`` (the counterpart of
   ``_pfb_fir_kernel``); its plain version is :func:`pfb_fir_planes`.
 - :func:`lag_rows_kernel` launches ``csrc/lag_rows.cu`` (the counterpart
@@ -27,37 +32,44 @@ import torch
 from ..channelizer import fused_channelize_planes, pfb_fir_planes  # noqa: F401  (plain versions)
 from ..channelizer import fused_out_len
 from ..rx.frontend import check_lags
-from ..rx.frontend import detection_metrics_planes, lag_rows_planes  # noqa: F401  (plain versions)
+from ..rx.frontend import (detection_metrics_planes, detection_metrics_wm_planes,  # noqa: F401
+                           lag_rows_planes)  # (plain versions)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+DET_VARIANTS = ("pp", "tile")
+
+
+def _bind(lib, name: str, argtypes):
+    """Declare ``lib``'s ``<name>_launch`` (``argtypes``, returning the
+    launch's cudaError_t) and ``<name>_error_string``; returns ``lib``."""
+    launch = getattr(lib, f"{name}_launch")
+    launch.argtypes = argtypes
+    launch.restype = ctypes.c_int
+    err = getattr(lib, f"{name}_error_string")
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
+    return lib
+
+
+def _check_rc(lib, name: str, rc: int) -> None:
+    if rc != 0:
+        msg = getattr(lib, f"{name}_error_string")(rc).decode()
+        raise RuntimeError(f"{name} launch failed: {msg} ({rc})")
 
 
 @functools.cache
 def _det_lib():
     from ._build import load
 
-    lib = load("det_metrics")
-    lib.det_metrics_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
-        ctypes.c_int, ctypes.c_void_p]
-    lib.det_metrics_launch.restype = ctypes.c_int
-    lib.det_metrics_error_string.argtypes = [ctypes.c_int]
-    lib.det_metrics_error_string.restype = ctypes.c_char_p
-    return lib
+    return _bind(load("det_metrics"), "det_metrics",
+                 [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 3
+                 + [ctypes.c_int, ctypes.c_void_p])
 
 
-def detection_metrics_kernel(xf: torch.Tensor, sps: int):
-    """Detection metrics of packed IQ ``[..., 2, L]`` (float32 or
-    bfloat16): ``(corr, e1, e2)`` float32 ``[..., K]``, ``K = L//sps - 1``,
-    as :func:`detection_metrics_planes` computes them.
-
-    CPU tensor: the plain version. CUDA tensor: the kernel; it must be
-    contiguous. Raises on any other dtype, layout or device, and when the
-    block holds fewer than two symbol windows.
-    """
+def _check_planes(xf, name: str, sps: int) -> int:
+    """Checks shared by the detection wrappers; returns ``sps`` as an int."""
     if not isinstance(xf, torch.Tensor):
-        raise TypeError("detection_metrics_kernel takes a torch tensor")
+        raise TypeError(f"{name} takes a torch tensor")
     if xf.dtype not in _DTYPE_CODE:
         raise TypeError(f"packed planes must be float32 or bfloat16, not {xf.dtype}")
     if xf.ndim < 2 or xf.shape[-2] != 2:
@@ -66,46 +78,150 @@ def detection_metrics_kernel(xf: torch.Tensor, sps: int):
     L = xf.shape[-1]
     if sps < 1 or L // sps < 2:
         raise ValueError(f"need at least two windows of {sps} samples, got L={L}")
-    if xf.device.type == "cpu":
-        return detection_metrics_planes(xf, sps)
-    if xf.device.type != "cuda":
+    if xf.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no detection kernel for device {xf.device}")
-    if not xf.is_contiguous():
+    if xf.device.type == "cuda" and not xf.is_contiguous():
         raise ValueError("the detection kernel reads contiguous planes")
+    return sps
+
+
+def _det_outputs(xf, sps: int):
+    """``(lead, C, K1, corr [C, K], ener [C, K1])``, the outputs allocated
+    on the planes' device."""
     lead = xf.shape[:-2]
     C = math.prod(lead)
-    K1 = L // sps
-    K = K1 - 1
-    corr = torch.empty((C, K), dtype=torch.float32, device=xf.device)
+    K1 = xf.shape[-1] // sps
+    corr = torch.empty((C, K1 - 1), dtype=torch.float32, device=xf.device)
     ener = torch.empty((C, K1), dtype=torch.float32, device=xf.device)
+    return lead, C, K1, corr, ener
+
+
+def _det_split(lead, K1: int, corr, ener):
+    K = K1 - 1
+    return (corr.reshape(lead + (K,)), ener[:, :K].reshape(lead + (K,)),
+            ener[:, 1:].reshape(lead + (K,)))
+
+
+def detection_metrics_kernel(xf: torch.Tensor, sps: int, variant: str = "pp"):
+    """Detection metrics of packed IQ ``[..., 2, L]`` (float32 or
+    bfloat16): ``(corr, e1, e2)`` float32 ``[..., K]``, ``K = L//sps - 1``,
+    as :func:`detection_metrics_planes` computes them.
+
+    ``variant``: ``"pp"`` (K1, ``csrc/det_metrics.cu``) or ``"tile"``
+    (K2, :func:`detection_metrics_tile_kernel`, which takes float32 and
+    upcasts bfloat16 planes first); any other value raises ``ValueError``
+    before anything else is looked at. CPU tensor: the plain version. CUDA
+    tensor: the kernel; it must be contiguous. Raises on any other dtype,
+    layout or device, and when the block holds fewer than two symbol
+    windows.
+    """
+    if variant not in DET_VARIANTS:
+        raise ValueError(f"unknown detection kernel variant: {variant!r}")
+    if variant == "tile":
+        return detection_metrics_tile_kernel(xf, sps)
+    sps = _check_planes(xf, "detection_metrics_kernel", sps)
+    if xf.device.type == "cpu":
+        return detection_metrics_planes(xf, sps)
+    lead, C, K1, corr, ener = _det_outputs(xf, sps)
     lib = _det_lib()
     with torch.cuda.device(xf.device):  # the C entry launches on the current device
         rc = lib.det_metrics_launch(
-            xf.data_ptr(), corr.data_ptr(), ener.data_ptr(), C, L, sps,
+            xf.data_ptr(), corr.data_ptr(), ener.data_ptr(), C, xf.shape[-1], sps,
             _DTYPE_CODE[xf.dtype], torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        msg = lib.det_metrics_error_string(rc).decode()
-        raise RuntimeError(f"det_metrics launch failed: {msg} ({rc})")
+    _check_rc(lib, "det_metrics", rc)
     detection_metrics_kernel.launches += 1
-    return (corr.reshape(lead + (K,)), ener[:, :K].reshape(lead + (K,)),
-            ener[:, 1:].reshape(lead + (K,)))
+    return _det_split(lead, K1, corr, ener)
 
 
 detection_metrics_kernel.launches = 0
 
 
 @functools.cache
+def _tile_lib():
+    from ._build import load
+
+    return _bind(load("det_tile"), "det_tile",
+                 [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 3 + [ctypes.c_void_p])
+
+
+def detection_metrics_tile_kernel(xf: torch.Tensor, sps: int):
+    """The ``"tile"`` variant of :func:`detection_metrics_kernel`: the same
+    ``(corr, e1, e2)`` from ``csrc/det_tile.cu``, which stages ``[2, T+1,
+    W]`` float32 slabs of the planes in shared memory. bfloat16 planes are
+    upcast to float32 first, as the TPU kernel's caller does. CPU tensor:
+    the plain version (on the float32 upcast). CUDA tensor: the kernel; it
+    must be contiguous. Raises as :func:`detection_metrics_kernel` does."""
+    sps = _check_planes(xf, "detection_metrics_tile_kernel", sps)
+    if xf.device.type == "cpu":
+        return detection_metrics_planes(xf.to(torch.float32), sps)
+    xf = xf.to(torch.float32)
+    lead, C, K1, corr, ener = _det_outputs(xf, sps)
+    lib = _tile_lib()
+    with torch.cuda.device(xf.device):  # the C entry launches on the current device
+        rc = lib.det_tile_launch(xf.data_ptr(), corr.data_ptr(), ener.data_ptr(), C,
+                                 xf.shape[-1], sps, torch.cuda.current_stream().cuda_stream)
+    _check_rc(lib, "det_tile", rc)
+    detection_metrics_tile_kernel.launches += 1
+    return _det_split(lead, K1, corr, ener)
+
+
+detection_metrics_tile_kernel.launches = 0
+
+
+@functools.cache
+def _wm_lib():
+    from ._build import load
+
+    return _bind(load("det_wm"), "det_wm",
+                 [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 3 + [ctypes.c_void_p])
+
+
+def detection_metrics_wm_kernel(xw: torch.Tensor):
+    """Detection metrics of window-major IQ ``[..., K1, 2, sps]`` float32:
+    ``(corr, ener)`` float32 ``[..., K1]``, as
+    :func:`detection_metrics_wm_planes` computes them (the last window
+    paired with itself). Any ``K1 >= 1`` and ``sps >= 1``.
+
+    CPU tensor: the plain version. CUDA tensor: the kernel
+    (``csrc/det_wm.cu``); it must be contiguous. Raises on any other
+    dtype, layout or device.
+    """
+    if not isinstance(xw, torch.Tensor):
+        raise TypeError("detection_metrics_wm_kernel takes a torch tensor")
+    if xw.dtype != torch.float32:
+        raise TypeError(f"window-major IQ must be float32, not {xw.dtype}")
+    if xw.ndim < 3 or xw.shape[-2] != 2 or xw.shape[-1] < 1 or xw.shape[-3] < 1:
+        raise ValueError(f"expected window-major IQ [..., K1, 2, sps], got {tuple(xw.shape)}")
+    if xw.device.type == "cpu":
+        return detection_metrics_wm_planes(xw)
+    if xw.device.type != "cuda":
+        raise ValueError(f"no detection kernel for device {xw.device}")
+    if not xw.is_contiguous():
+        raise ValueError("the window-major detection kernel reads contiguous windows")
+    lead = xw.shape[:-2]
+    K1, sps = xw.shape[-3], xw.shape[-1]
+    C = math.prod(lead[:-1])
+    corr = torch.empty(lead, dtype=torch.float32, device=xw.device)
+    ener = torch.empty(lead, dtype=torch.float32, device=xw.device)
+    lib = _wm_lib()
+    with torch.cuda.device(xw.device):  # the C entry launches on the current device
+        rc = lib.det_wm_launch(xw.data_ptr(), corr.data_ptr(), ener.data_ptr(), C, K1, sps,
+                               torch.cuda.current_stream().cuda_stream)
+    _check_rc(lib, "det_wm", rc)
+    detection_metrics_wm_kernel.launches += 1
+    return corr, ener
+
+
+detection_metrics_wm_kernel.launches = 0
+
+
+@functools.cache
 def _pfb_lib():
     from ._build import load
 
-    lib = load("pfb_fir")
-    lib.pfb_fir_launch.argtypes = (
-        [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 6
-        + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-    lib.pfb_fir_launch.restype = ctypes.c_int
-    lib.pfb_fir_error_string.argtypes = [ctypes.c_int]
-    lib.pfb_fir_error_string.restype = ctypes.c_char_p
-    return lib
+    return _bind(load("pfb_fir"), "pfb_fir",
+                 [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 6
+                 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 
 
 def pfb_fir_kernel(xf: torch.Tensor, h_poly: torch.Tensor,
@@ -167,9 +283,7 @@ def pfb_fir_kernel(xf: torch.Tensor, h_poly: torch.Tensor,
             xf.data_ptr(), h_poly.data_ptr(), out.data_ptr(), M, K, n_vec,
             xf.stride(0), M, 2 * M, _DTYPE_CODE[xf.dtype], _DTYPE_CODE[out_dtype],
             torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        msg = lib.pfb_fir_error_string(rc).decode()
-        raise RuntimeError(f"pfb_fir launch failed: {msg} ({rc})")
+    _check_rc(lib, "pfb_fir", rc)
     pfb_fir_kernel.launches += 1
     return out[:n_out].transpose(0, 1)
 
@@ -181,14 +295,9 @@ pfb_fir_kernel.launches = 0
 def _lag_lib():
     from ._build import load
 
-    lib = load("lag_rows")
-    lib.lag_rows_launch.argtypes = (
-        [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 3
-        + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-    lib.lag_rows_launch.restype = ctypes.c_int
-    lib.lag_rows_error_string.argtypes = [ctypes.c_int]
-    lib.lag_rows_error_string.restype = ctypes.c_char_p
-    return lib
+    return _bind(load("lag_rows"), "lag_rows",
+                 [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 3
+                 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 
 
 @functools.cache
@@ -235,9 +344,7 @@ def lag_rows_kernel(xf: torch.Tensor, sps_min: int, lags):
             xf.data_ptr(), _lag_table(lags, xf.device).data_ptr(), out.data_ptr(),
             C, L, sps_min, len(lags), lags[-1], _DTYPE_CODE[xf.dtype],
             torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        msg = lib.lag_rows_error_string(rc).decode()
-        raise RuntimeError(f"lag_rows launch failed: {msg} ({rc})")
+    _check_rc(lib, "lag_rows", rc)
     lag_rows_kernel.launches += 1
     out = out.reshape(lead + (S, R))
     return out[..., 0, :], {lag: (out[..., 1 + 2 * s, :], out[..., 2 + 2 * s, :])
@@ -251,15 +358,11 @@ def bind_fused_lib(lib):
     """Declare the C entry points of a library built from
     ``csrc/fused_chan.cu`` (the port's, or a tuning variant's); returns
     ``lib``."""
-    lib.fused_chan_launch.argtypes = (
-        [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
-        + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2 + [ctypes.c_longlong]
-        + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
-                                   ctypes.c_void_p])
-    lib.fused_chan_launch.restype = ctypes.c_int
-    lib.fused_chan_error_string.argtypes = [ctypes.c_int]
-    lib.fused_chan_error_string.restype = ctypes.c_char_p
-    return lib
+    return _bind(lib, "fused_chan",
+                 [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
+                 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2 + [ctypes.c_longlong]
+                 + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
+                                            ctypes.c_void_p])
 
 
 @functools.cache
@@ -282,9 +385,7 @@ def fused_chan_launch(lib, xf, g2, ramp, decimation: int, n_taps: int, out) -> N
             -(-n_taps // decimation), o_re.data_ptr(), o_im.data_ptr(), o_re.shape[-1],
             i_re.data_ptr(), i_im.data_ptr(), i_re.shape[-1], out.data_ptr(), n_out,
             torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        msg = lib.fused_chan_error_string(rc).decode()
-        raise RuntimeError(f"fused_chan launch failed: {msg} ({rc})")
+    _check_rc(lib, "fused_chan", rc)
 
 
 def fused_channelize_kernel(xf: torch.Tensor, g2: torch.Tensor, ramp, decimation: int,

@@ -1,16 +1,22 @@
-"""Demodulation ops of the dense fft engine.
+"""Demodulation ops of the dense receiver's two engines.
 
 Torch forms of the per-window DSP that the dense receiver's Phase B runs
-(reference ``lib/decoder_impl.cc``): preamble CFO, upchirp sync, the SFD
-Pearson (``detect_downchirp`` :283-298,385-390), the folded dechirp
-argmax (``get_shift_fft`` :430-464), its fractional tone position, the
-upchirp likeness and the chirp CFO/STO separation. Each has a fold-DFT
-form (one matmul through the tables of :func:`make_fold_dft` and
-:func:`make_likeness_rows`, built in numpy, in float64, and cast once)
-and, for geometries whose tables would not fit, a no-fold form: the
-dechirp FFT (``torch.fft.fft``) and a slice of the tiled upchirp ifreq.
+(reference ``lib/decoder_impl.cc``). The fft engine's: preamble CFO,
+upchirp sync, the SFD Pearson (``detect_downchirp`` :283-298,385-390),
+the folded dechirp argmax (``get_shift_fft`` :430-464), its fractional
+tone position, the upchirp likeness and the chirp CFO/STO separation.
+Each has a fold-DFT form (one matmul through the tables of
+:func:`make_fold_dft` and :func:`make_likeness_rows`, built in numpy, in
+float64, and cast once) and, for geometries whose tables would not fit, a
+no-fold form: the dechirp FFT (``torch.fft.fft``) and a slice of the
+tiled upchirp ifreq. The gradient engine's: the ifreq-gradient demod
+(:func:`max_frequency_gradient_idx`, :466-491), the clock-drift lag search
+(:func:`fine_sync_lag`, ``fine_sync`` :300-338), and its two upchirp
+syncs, the reference's sliding search (:func:`upchirp_sync_xcorr`,
+:399-413) and the CFO-invariant fast one (:func:`upchirp_sync_grad`).
 Every function takes complex64 windows ``[..., n]`` and is batched over
-the leading axes.
+the leading axes; where JAX sliced per lane under ``vmap``, one gather
+from a sliding (``unfold``) view serves every lane.
 
 Tie-breaking follows the reference's strict ``>`` scans: ``torch.argmax``
 returns the first maximum. ``torch.round`` rounds half to even.
@@ -67,17 +73,12 @@ def upchirp_sync_parab(windows2: torch.Tensor, fold_mat, sps: int,
     return torch.clamp(torch.round(d0), 0, sps + 2 * decim - 1).to(torch.int32)
 
 
-def upchirp_sync_coarse_fine(windows2: torch.Tensor, downchirp: torch.Tensor,
-                             upchirp_ifreq: torch.Tensor, sps: int, n_bins: int,
-                             decim: int) -> torch.Tensor:
-    """Upchirp boundary offset in ``[0, sps + 2*decim)`` without fold
-    matrices: the dechirp FFT's tone bin ``b`` gives the boundary to
-    ``decim/2`` (``d0 = sps - b*decim``), and the best of ``span = 4*decim
-    + 1`` ifreq cross-correlations against the ideal upchirp around
-    ``d0 - 2*decim`` gives it exactly. The lag rows of every lane are one
+def _ifreq_refine(windows2: torch.Tensor, d0: torch.Tensor, upchirp_ifreq: torch.Tensor,
+                  sps: int, decim: int) -> torch.Tensor:
+    """The best of ``span = 4*decim + 1`` ifreq cross-correlations against
+    the ideal upchirp around the coarse boundary ``d0 - 2*decim`` (its
+    start clamped into the window pair). The lag rows of every lane are one
     gather from a sliding view of the ifreq. int32 ``[...]``."""
-    b = fft_shift_idx(windows2[..., :sps], downchirp, n_bins, sps)
-    d0 = sps - b * decim
     span = 4 * decim + 1
     ref = upchirp_ifreq[:sps - 1]
     ifr = instantaneous_frequency(windows2)                     # [..., 2*sps]
@@ -87,6 +88,68 @@ def upchirp_sync_coarse_fine(windows2: torch.Tensor, downchirp: torch.Tensor,
     rows = torch.take_along_dim(lag_rows, idx[..., None], dim=-2)  # [..., span, sps - 1]
     c = rows @ ref
     return (base0 + torch.argmax(c, dim=-1)).to(torch.int32)
+
+
+def upchirp_sync_coarse_fine(windows2: torch.Tensor, downchirp: torch.Tensor,
+                             upchirp_ifreq: torch.Tensor, sps: int, n_bins: int,
+                             decim: int, fold_mat=None) -> torch.Tensor:
+    """Upchirp boundary offset in ``[0, sps + 2*decim)``: the dechirped
+    tone bin ``b`` (the dechirp FFT's, or the fold-DFT matmul's when
+    ``fold_mat`` is given) gives the boundary to ``decim/2`` (``d0 = sps -
+    b*decim``), and :func:`_ifreq_refine` gives it exactly. int32
+    ``[...]``."""
+    if fold_mat is not None:
+        b = fft_shift_idx_mm(windows2[..., :sps], fold_mat)
+    else:
+        b = fft_shift_idx(windows2[..., :sps], downchirp, n_bins, sps)
+    return _ifreq_refine(windows2, sps - b * decim, upchirp_ifreq, sps, decim)
+
+
+def upchirp_sync_grad(windows2: torch.Tensor, upchirp_ifreq: torch.Tensor, sps: int,
+                      n_bins: int, decim: int) -> torch.Tensor:
+    """CFO-invariant upchirp boundary offset for the gradient engine. The
+    coarse estimate is the ifreq wrap position (:func:`max_frequency_gradient_idx`),
+    which a carrier offset cannot move, read from the leading window and
+    from one half a symbol later (their boundaries differ by ``sps/2``);
+    the estimate whose wrap bin is further from the window edges wins, and
+    :func:`_ifreq_refine` recovers the exact offset. A dechirp-tone sync
+    would fold integer-bin CFO into the timing, which the CFO-blind
+    gradient demod turns into a bin error on every symbol. int32 ``[...]``."""
+    w_a = windows2[..., :sps]
+    w_b = windows2[..., sps // 2:sps // 2 + sps]
+    b_a = max_frequency_gradient_idx(w_a, n_bins, decim)
+    b_b = max_frequency_gradient_idx(w_b, n_bins, decim)
+    d_a = (sps - (b_a + 1) * decim) % sps
+    d_b = (sps - (b_b + 1) * decim + sps // 2) % sps
+    cent_a = torch.minimum(b_a + 1, n_bins - 1 - b_a)
+    cent_b = torch.minimum(b_b + 1, n_bins - 1 - b_b)
+    d0 = torch.where(cent_a >= cent_b, d_a, d_b)
+    return _ifreq_refine(windows2, d0, upchirp_ifreq, sps, decim)
+
+
+def _sliding_dot(x: torch.Tensor, ref: torch.Tensor, n_offsets: int) -> torch.Tensor:
+    """``out[..., i] = sum_k x[..., i+k] * ref[k]`` for ``i < n_offsets``:
+    one ``conv1d`` (a cross-correlation) of every row with ``ref``, in
+    full float32 under :func:`~lora_tpu_torch.device.full_f32_matmul`
+    (cuDNN's TF32 off)."""
+    m = ref.shape[-1]
+    lead = x.shape[:-1]
+    flat = x.reshape(-1, 1, x.shape[-1])
+    out = torch.nn.functional.conv1d(flat[..., :n_offsets + m - 1],
+                                     ref.reshape(1, 1, m).to(x.dtype))
+    return out.reshape(lead + (n_offsets,))
+
+
+def upchirp_sync_xcorr(windows2: torch.Tensor, upchirp_ifreq: torch.Tensor, sps: int):
+    """The reference's sliding upchirp search over a 2-symbol window
+    ``[..., 2*sps]``: ``(index, max_corr)``, the offset in ``[0, sps)``
+    maximising the (unnormalised) ifreq dot product with the ideal upchirp
+    over ``sps - 1`` samples (int32), and that maximum (float32). O(sps^2)
+    a window; :func:`upchirp_sync_grad` is the engine's default."""
+    ifr = instantaneous_frequency(windows2)
+    corr = _sliding_dot(ifr, upchirp_ifreq[:sps - 1], sps)     # [..., sps]
+    idx = torch.argmax(corr, dim=-1)
+    return idx.to(torch.int32), _take(corr, idx).to(torch.float32)
 
 
 def fft_shift_idx_mm(windows: torch.Tensor, fold_mat) -> torch.Tensor:
@@ -283,3 +346,64 @@ def make_likeness_rows(upchirp_ifreq_tiled: np.ndarray, sps: int,
     norm = np.sqrt((rows_c * rows_c).sum(axis=-1))
     inv = np.where(norm > 0, 1.0 / np.where(norm > 0, norm, 1.0), 0.0)
     return rows_c.astype(np.float32), inv.astype(np.float32)
+
+
+def max_frequency_gradient_idx(window: torch.Tensor, n_bins: int, decim: int) -> torch.Tensor:
+    """The gradient demod (reference :466-491): the bin of the largest
+    negative ifreq step between adjacent bin averages of ``[..., sps]``
+    windows. Threshold 0.1; the scan starts at bin 1 and stores ``i + 1``;
+    the result is ``(n_bins - max_index) % n_bins`` with ``max_index = 0``
+    when no step passes. The last bin's average leaves out its final
+    ``max(decim // 2, 2)`` samples (none at ``decim <= 2``): a window late
+    by up to half a bin keeps the channel filter's glitch into the next
+    symbol out of the argmax, and every true wrap lies left of that tail.
+    int32 ``[...]``."""
+    ifr = instantaneous_frequency(window)
+    use = ifr[..., :n_bins * decim].reshape(ifr.shape[:-1] + (n_bins, decim))
+    sums = use.sum(-1)
+    trim = max(decim // 2, 2) if decim > 2 else 0
+    if trim:
+        tail = use[..., -1, decim - trim:].sum(-1)
+        last = (sums[..., -1] - tail) / (decim - trim)
+        avg = torch.cat([sums[..., :-1] / decim, last[..., None]], dim=-1)
+    else:
+        avg = sums / decim
+    grad = avg[..., :-1] - avg[..., 1:]     # grad[i-1] = avg[i-1] - avg[i]
+    best = torch.argmax(grad, dim=-1)       # the first maximum, as a strict > scan
+    found = _take(grad, best) > 0.1
+    max_index = torch.where(found, best + 2, 0)
+    return ((n_bins - max_index) % n_bins).to(torch.int32)
+
+
+def fine_sync_search_space(decim: int) -> int:
+    """The per-symbol drift-search budget of :func:`fine_sync_lag`:
+    ``max(decim // 4, 2)`` (reference :502), lags up to +-1 at decimation
+    8. A wider search wins wrong large lags over a long packet (a window
+    late by a whole bin reads as the next bin)."""
+    return max(decim // 4, 2)
+
+
+def fine_sync_lag(window: torch.Tensor, bin_idx, upchirp_ifreq_tiled: torch.Tensor,
+                  sps: int, decim: int, search_space: int) -> torch.Tensor:
+    """Clock-drift lag search (reference ``fine_sync`` :300-338) of
+    ``[..., sps]`` windows with demodulated bins ``bin_idx`` (int ``[...]``
+    or a Python int for all): ``-lag`` (int32 ``[...]``) for the lag in
+    ``(-search_space, search_space)`` that maximises the ifreq dot product
+    with the tiled ideal upchirp at ``(bin + 1)*decim + sps + lag``; 0 when
+    no correlation is positive (strict ``>`` from a zero start). Each
+    lane's lag rows are one gather from a sliding view of the table, whose
+    section start is clamped into it as a dynamic slice is."""
+    ifr = instantaneous_frequency(window)                       # [..., sps]
+    dev = ifr.device
+    lags = torch.arange(-search_space + 1, search_space, device=dev)
+    n_lags = lags.shape[0]
+    bin_idx = torch.as_tensor(bin_idx, device=dev).long()
+    base = (bin_idx + 1) * decim + sps
+    start = torch.clamp(base + lags[0], 0, upchirp_ifreq_tiled.shape[-1] - (sps + n_lags - 1))
+    start = start.expand(ifr.shape[:-1])
+    rows = upchirp_ifreq_tiled.unfold(0, sps, 1)[start[..., None] + torch.arange(n_lags, device=dev)]
+    corr = (rows @ ifr[..., None])[..., 0]                      # [..., n_lags]
+    best = torch.argmax(corr, dim=-1)
+    pos = _take(corr, best) > 0.0
+    lag = torch.where(pos, lags[best], 0)
+    return (-lag).to(torch.int32)

@@ -1,4 +1,4 @@
-"""Dense two-phase receiver on the fft engine.
+"""Dense two-phase receiver.
 
 Phase A computes the preamble metric of every symbol-stride window of a
 block in one pass (the hand-written detection kernel on the card, its
@@ -9,12 +9,24 @@ is one batched gather from the source planes, and the fold-DFT matmuls,
 Pearson correlations and the integer decode tail run batched over the
 lanes. No ``pkt_samples`` region is materialised per lane.
 
-Ported: the explicit-header fft engine, with the fold-DFT matrices where
-they fit (``sps * n_bins <= 16M``) and the dechirp FFT where they do not
-(SF12 at 250 ksps); the fft drift pass (auto-on from SF11); optional
-header-checksum verification. Not ported yet, and refused with
-``NotImplementedError``: the gradient engine, implicit headers and
-``low_snr``.
+Demod engines (``demod_method``):
+
+- ``gradient``: the reference's ifreq-gradient demod with its per-symbol
+  fine-sync drift tracking (lib/decoder_impl.cc:466-491,300-338), after a
+  CFO-invariant upchirp sync (``fast_sync``; ``False`` selects the
+  reference's sliding search) and the reference's SFD walk. JAX's two
+  ``lax.scan`` loops are Python loops over symbols here, every lane of a
+  step batched.
+- ``fft``: dechirp + fold-DFT matmul argmax on a static window grid, with
+  the fold-DFT matrices where they fit (``sps * n_bins <= 16M``) and the
+  dechirp FFT where they do not (SF12 at 250 ksps); the fft drift pass
+  (auto-on from SF11).
+- ``auto`` (default): ``gradient`` at decimation >= 4 with explicit
+  headers, ``fft`` otherwise, as JAX resolves it.
+
+Optional header-checksum verification. Not ported yet, and refused with
+``NotImplementedError``: implicit headers, ``low_snr`` and
+``debug_trace``.
 
 :meth:`DenseReceiver.process_pooled_planes` is the many-channel form: the
 strongest candidates of all channels share one global pool of lanes. It
@@ -136,12 +148,15 @@ class DenseReceiver:
     """Block-based multi-packet receiver for one static config.
 
     ``max_symbols`` bounds the payload symbols per packet (the header
-    block's 8 symbols are separate). ``fft_drift_pass``: correct the
-    static window grid for sample-clock drift (``None``: on from SF11,
-    where a 30 ppm clock outruns the grid's ``decim/2`` tolerance within a
-    packet). ``device``: where the tables live and the block is processed;
-    ``None`` is the card, and there is no quiet fallback to the CPU when
-    it is missing.
+    block's 8 symbols are separate). ``demod_method``: ``"gradient"``,
+    ``"fft"`` or ``"auto"`` (see the module). ``fft_drift_pass``: correct
+    the fft engine's static window grid for sample-clock drift (``None``:
+    on from SF11, where a 30 ppm clock outruns the grid's ``decim/2``
+    tolerance within a packet). ``fast_sync``: the gradient engine's sync,
+    the CFO-invariant fast one (``None``/``True``) or the reference's
+    O(sps^2) sliding search (``False``). ``device``: where the tables live
+    and the block is processed; ``None`` is the card, and there is no
+    quiet fallback to the CPU when it is missing.
     """
 
     def __init__(
@@ -152,6 +167,7 @@ class DenseReceiver:
         sfd_search: int = 12,
         demod_method: str = "auto",
         fft_drift_pass=None,
+        fast_sync=None,
         header_checksum: bool = False,
         detect_threshold: float = 0.90,
         low_snr: bool = False,
@@ -160,16 +176,17 @@ class DenseReceiver:
         if demod_method == "auto":
             demod_method = ("fft" if config.implicit or config.decim_factor < 4
                             or low_snr else "gradient")
-        if demod_method != "fft":
-            raise NotImplementedError(
-                f"demod_method={demod_method!r}: only the fft engine is ported")
+        if demod_method not in ("fft", "gradient"):
+            raise ValueError(f"unknown demod_method {demod_method!r}")
         if config.implicit:
             raise NotImplementedError("implicit headers are not ported")
         if low_snr:
             raise NotImplementedError("low_snr mode is not ported")
+        self.method = demod_method
         if fft_drift_pass is None:
-            fft_drift_pass = config.sf >= 11
+            fft_drift_pass = demod_method == "fft" and config.sf >= 11
         self.fft_drift_pass = bool(fft_drift_pass)
+        self.fast_sync = True if fast_sync is None else bool(fast_sync)
         self.cfg = config
         self.P = int(max_candidates)
         self.S = int(max_symbols)
@@ -239,6 +256,114 @@ class DenseReceiver:
             return torch.complex(w[:, 0], conj_sign * w[:, 1])
 
         return win
+
+    def _decode_lane(self, win):
+        """Phase B of every lane through the receiver's engine."""
+        if self.method == "fft":
+            return self._decode_candidate_fft(win)
+        return self._decode_candidate_grad(win)
+
+    def _demod_symbol(self, window: torch.Tensor):
+        """One gradient-engine symbol of every lane ``[N, sps]``: ``(bin,
+        fine_sync)`` int32 ``[N]`` (fine sync 0 with drift correction
+        off). The fft engine demodulates its static grid in one batch
+        instead (:meth:`_decode_candidate_static`)."""
+        b = demod.max_frequency_gradient_idx(window, self.n_bins, self.decim)
+        if self.cfg.disable_drift_correction:
+            return b, torch.zeros_like(b)
+        fine = demod.fine_sync_lag(window, b, self._up_ifreq_v, self.sps, self.decim,
+                                   demod.fine_sync_search_space(self.decim))
+        return b, fine
+
+    def _decode_candidate_grad(self, win):
+        """Gradient-engine Phase B for every lane ``[N]``: the upchirp sync,
+        the reference's FIND_SFD walk (:785-818) over ``F`` windows, the
+        CFO, then the demod of 8 header + ``S`` payload symbols, each window
+        placed by the previous one's fine sync and the drift rate measured
+        in the walk. Each of JAX's two scans is a loop over steps here; a
+        step runs all lanes at once."""
+        cfg = self.cfg
+        sps, nb, decim = self.sps, self.n_bins, self.decim
+        w2 = win(0, 2 * sps)
+        if self.fast_sync:
+            # CFO-invariant: the gradient demod is timing-sensitive but
+            # CFO-blind, so its sync must be timing-true
+            i0 = demod.upchirp_sync_grad(w2, self._up_ifreq, sps, nb, decim)
+        else:
+            i0 = demod.upchirp_sync_xcorr(w2, self._up_ifreq, sps)[0]
+        i0 = i0.long()
+        N = i0.shape[0]
+        dev = i0.device
+        frac_cfo = demod.preamble_cfo(win(i0, 2 * sps), sps, cfg.samp_rate)
+
+        # FIND_SFD walk: a run of <= 2 upchirps clearly shifted against the
+        # anchored preamble bin, after >= 2 stable preamble reads, with
+        # upchirp likeness, is the sync word (hold alignment, spend no fail
+        # budget); every upchirp read feeds the sample-clock drift estimate
+        zi = torch.zeros(N, dtype=torch.int64, device=dev)
+        p, fails, p_found, d_den, srun, streak = i0, zi, zi, zi, zi, zi
+        ref = torch.full((N,), -1, dtype=torch.int64, device=dev)
+        found = torch.zeros(N, dtype=torch.bool, device=dev)
+        d_num = torch.zeros(N, dtype=torch.float32, device=dev)
+        for _ in range(self.F):
+            w = win(p, sps)
+            c = demod.downchirp_pearson(w, self._down_ifreq, sps)
+            hit = (c > 0.96) & ~found
+            b = demod.max_frequency_gradient_idx(w, nb, decim).long()
+            first = ref < 0
+            ref = torch.where(first, b, ref)
+            streak = torch.where(first, 1, streak)
+            rel = (b - ref) % nb
+            dist = torch.minimum(rel, nb - rel)
+            likeness = demod.upchirp_likeness(w, b, self._up_ifreq_v, sps, decim)
+            is_syncw = (~found & ~hit & (dist > 3) & (srun < 2) & (streak >= 2)
+                        & (likeness > demod.SYNC_LIKENESS_MIN))
+            is_up = (c < -0.97) & ~is_syncw
+            up_open = is_up & ~found & ~hit
+            ref = torch.where(up_open & (dist > 3), b, ref)
+            streak = torch.where(up_open, torch.where(dist <= 3, streak + 1, 1), streak)
+            fine = torch.where(up_open,
+                               demod.fine_sync_lag(w, -1, self._up_ifreq_v, sps, decim,
+                                                   decim * 4).long(), 0)
+            # large lags are resyncs, not drift
+            track = up_open & (fine.abs() <= decim // 2)
+            d_num = d_num + torch.where(track, fine, 0).to(torch.float32)
+            d_den = d_den + track.long()
+            fails = torch.where(found | hit | is_up | is_syncw, fails, fails + 1)
+            srun = torch.where(is_syncw, srun + 1, srun)
+            p_found = torch.where(hit, p, p_found)
+            found = found | hit
+            p = torch.where(found, p, p + sps + fine)
+        sfd_ok = found & (fails <= 4)
+        # full-range CFO: the integer-bin part from the SFD downchirp, the
+        # fraction from the preamble phase
+        coarse = demod.chirp_coarse_cfo(
+            win(i0, sps), win(p_found, sps), nb, sps, cfg.samp_rate,
+            self._fold_mat, self._fold_up, self._up, self._down)
+        cfo = demod.combine_cfo(coarse, frac_cfo, sps, cfg.samp_rate)
+        # data starts 2.25 symbols after the SFD (:816,:822), advanced by
+        # the measured drift rate; the demod applies the rate open-loop a
+        # symbol, so fine sync only carries the residual
+        rate = d_num / torch.clamp(d_den, min=1)
+        p = (p_found + 2 * sps + cfg.delay_after_sync
+             + torch.round(2.25 * rate).to(torch.int64))
+        acc = torch.zeros(N, dtype=torch.float32, device=dev)
+        words = []
+        for k in range(8 + self.S):
+            b_full, fine = self._demod_symbol(win(p, sps))
+            if k < 8 or cfg.reduced_rate:
+                b = torch.floor(b_full / 4.0 + 0.5).to(torch.int32) % cfg.number_of_bins_hdr
+            else:
+                b = b_full
+            words.append(b ^ (b >> 1))
+            acc = acc + rate
+            dstep = torch.round(acc)
+            acc = acc - dstep
+            if cfg.disable_drift_correction:
+                dstep = torch.zeros_like(dstep)
+            p = p + sps + fine.long() + dstep.to(torch.int64)
+        ok, pay, plen, hdr = self._finish_decode(torch.stack(words, dim=-1), sfd_ok)
+        return ok, pay, plen, hdr, cfo
 
     def _decode_candidate_fft(self, win):
         """Phase B for every lane: the parabolic fold-DFT sync (without
@@ -403,7 +528,7 @@ class DenseReceiver:
             conj_sign = -1.0 if self.cfg.conj else 1.0
             win = self._candidate_win(planes, chan, starts.reshape(-1) * sps,
                                       conj_sign)
-            ok, pay, plen, hdr, cfo = self._decode_candidate_fft(win)
+            ok, pay, plen, hdr, cfo = self._decode_lane(win)
         shape = lead + (self.P,)
         return DenseResult(
             valid=ok.reshape(shape) & s_valid,
@@ -435,7 +560,7 @@ class DenseReceiver:
             chan, win, lane_valid, snr, n_dropped = self._pool_lanes(
                 e1, corr, per_channel, pool, L)
             conj_sign = -1.0 if self.cfg.conj else 1.0
-            ok, pay, plen, hdr, cfo = self._decode_candidate_fft(
+            ok, pay, plen, hdr, cfo = self._decode_lane(
                 self._candidate_win(xf, chan, win * sps, conj_sign))
         return PooledResult(
             valid=ok & lane_valid,
@@ -497,6 +622,10 @@ class DenseReceiver:
         else:
             xf = torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(self.device)
         return self.process_planes(xf)
+
+    def debug_trace(self, *args, **kwargs):
+        """JAX's per-lane intermediate taps: not ported."""
+        raise NotImplementedError("debug_trace is not ported")
 
     def run(self, x, channel_offset: int = 0) -> List[Frame]:
         """Decode a block (1-D or ``[C, L]``) into host :class:`Frame`s."""

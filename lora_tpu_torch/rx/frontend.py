@@ -6,7 +6,10 @@ metric is computed for every symbol-stride window of a block in one
 batched pass. :func:`detection_metrics_planes` is the plain torch version
 of the hand-written detection kernel
 (:func:`lora_tpu_torch.ops.cuda_kernels.detection_metrics_kernel`): the
-CPU path and the yardstick the kernel is held to on the card.
+CPU path and the yardstick the kernel is held to on the card, for both of
+its variants (``"pp"`` and the staged ``"tile"`` kernel).
+:func:`detection_metrics_wm_planes` is the same metric on window-major
+IQ, the plain version of the window-major kernel.
 
 Several spreading factors share one pass: every SF's symbol is a whole
 number of the smallest SF's, so :func:`lag_rows_planes` (the plain
@@ -52,6 +55,36 @@ def detection_metrics_planes(xf: torch.Tensor, sps: int):
     corr = torch.where(ok, mag / torch.where(ok, denom, torch.ones_like(denom)),
                        torch.zeros_like(mag))
     return corr, e1, e2
+
+
+def detection_metrics_wm_planes(xw: torch.Tensor):
+    """Per-window preamble autocorrelation on window-major IQ ``[..., K1,
+    2, sps]`` (float32; window ``k`` is ``xw[..., k, :, :]``, its two
+    planes side by side).
+
+    Returns ``(corr, ener)`` float32 ``[..., K1]``: ``corr[k] = |dot_k| /
+    sqrt(e_k e_n)`` with ``dot_k = sum_t x_k[t] conj(x_n[t])`` and ``n = k
+    + 1``, except for the last window, which is paired with itself (so its
+    corr is 1 where its energy is > 0); 0 where the denominator is 0.
+    ``ener[k]`` is window ``k``'s total energy. The plain version of the
+    window-major detection kernel
+    (:func:`lora_tpu_torch.ops.cuda_kernels.detection_metrics_wm_kernel`).
+    """
+    xw = xw.to(torch.float32)
+    r = xw[..., 0, :]                                   # [..., K1, sps]
+    i = xw[..., 1, :]
+    rn = torch.cat([r[..., 1:, :], r[..., -1:, :]], dim=-2)
+    i_n = torch.cat([i[..., 1:, :], i[..., -1:, :]], dim=-2)
+    dot_re = (r * rn + i * i_n).sum(-1)
+    dot_im = (i * rn - r * i_n).sum(-1)
+    ener = (r * r + i * i).sum(-1)
+    e_n = torch.cat([ener[..., 1:], ener[..., -1:]], dim=-1)
+    denom = torch.sqrt(ener * e_n)
+    mag = torch.sqrt(dot_re * dot_re + dot_im * dot_im)
+    ok = denom > 0
+    corr = torch.where(ok, mag / torch.where(ok, denom, torch.ones_like(denom)),
+                       torch.zeros_like(mag))
+    return corr, ener
 
 
 def check_lags(lags) -> tuple:

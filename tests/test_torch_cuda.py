@@ -1,6 +1,7 @@
-"""The port on the card: each kernel against its plain torch version, and
-the dense, wideband, multi-SF gateway and plan gateway receivers on the
-card against the port on the CPU.
+"""The port on the card: each kernel against its plain torch version, the
+dense receiver (both engines), wideband, multi-SF gateway and plan
+gateway receivers on the card against the port on the CPU, and the
+kernel studies.
 
 Every test here needs a CUDA device and skips without one. The file
 imports neither JAX nor the JAX package, so it runs where only torch is
@@ -26,6 +27,9 @@ from lora_tpu_torch import (DenseReceiver, LoRaConfig, MultiSFWidebandReceiver, 
 from lora_tpu_torch.channelizer import fused_tables, pfb_channel_freqs
 from lora_tpu_torch.ops.cuda_kernels import (detection_metrics_kernel,
                                              detection_metrics_planes,
+                                             detection_metrics_tile_kernel,
+                                             detection_metrics_wm_kernel,
+                                             detection_metrics_wm_planes,
                                              fused_channelize_kernel,
                                              fused_channelize_planes,
                                              lag_rows_kernel, lag_rows_planes,
@@ -65,6 +69,56 @@ def test_kernel_matches_plain(cuda_device, sps, k1, tail, dtype):
     assert detection_metrics_kernel.launches == before + 1
     assert all(g.is_cuda and g.dtype == torch.float32 for g in got)
     _close(got, detection_metrics_planes(x, sps))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sps,k1,tail", GEOMS)
+def test_tile_kernel_matches_plain(cuda_device, sps, k1, tail, dtype):
+    rng = np.random.default_rng(sps + k1 + 1)
+    x = rng.normal(size=(3, 2, k1 * sps + tail)).astype(np.float32)
+    x = torch.from_numpy(x).to(cuda_device).to(dtype)
+    before = detection_metrics_tile_kernel.launches
+    got = detection_metrics_kernel(x, sps, variant="tile")
+    torch.cuda.synchronize()
+    assert detection_metrics_tile_kernel.launches == before + 1
+    assert all(g.is_cuda and g.dtype == torch.float32 for g in got)
+    _close(got, detection_metrics_planes(x, sps))
+
+
+# sps, windows: the GEOMS shapes, and window counts that are a multiple of
+# no tile
+@pytest.mark.parametrize("sps,k1", [(g[0], g[1]) for g in GEOMS] + [(128, 1031), (3, 67)])
+def test_wm_kernel_matches_plain(cuda_device, sps, k1):
+    rng = np.random.default_rng(sps + k1 + 2)
+    xw = torch.from_numpy(rng.normal(size=(3, k1, 2, sps)).astype(np.float32)).to(cuda_device)
+    xw[1, 5] = 0.0     # a silent window
+    before = detection_metrics_wm_kernel.launches
+    got = detection_metrics_wm_kernel(xw)
+    torch.cuda.synchronize()
+    assert detection_metrics_wm_kernel.launches == before + 1
+    want = detection_metrics_wm_planes(xw)
+    torch.testing.assert_close(got[0].cpu(), want[0].cpu(), rtol=0, atol=2e-5)
+    torch.testing.assert_close(got[1].cpu(), want[1].cpu(), rtol=1e-5, atol=0)
+    assert float(got[0][1, 5]) == 0.0
+
+
+def test_wm_kernel_refuses_non_contiguous(cuda_device):
+    xw = torch.zeros((2, 8, 2, 256), device=cuda_device)[..., ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        detection_metrics_wm_kernel(xw)
+
+
+def test_kernel_studies_on_card(cuda_device):
+    from lora_tpu_torch.tools import profile_detect, profile_packing
+
+    before = (detection_metrics_kernel.launches, detection_metrics_tile_kernel.launches)
+    res = profile_detect.main(["2", "64"], iters=2, rounds=2)
+    assert (detection_metrics_kernel.launches - before[0],
+            detection_metrics_tile_kernel.launches - before[1]) == (res["calls"]["pp"],
+                                                                    res["calls"]["tile"])
+    assert min(res["ms"].values()) > 0.0
+    res = profile_packing.main(["2"], iters=2, rounds=2)
+    assert set(res["ms"]) == {"pp", "wm", "plain"} and min(res["ms"].values()) > 0.0
 
 
 def test_kernel_single_stream_and_cpu_agree(cuda_device):
@@ -115,6 +169,32 @@ def test_receiver_on_card_matches_cpu(cuda_device, dtype):
                                rtol=1e-5)
     np.testing.assert_allclose(got.cfo.cpu().numpy()[valid], want.cfo.numpy()[valid],
                                atol=1.0)
+
+
+def test_gradient_receiver_on_card_matches_cpu(cuda_device):
+    cfg = LoRaConfig(sf=7, cr=4, samp_rate=1e6, crc=True)
+    sps = cfg.samples_per_symbol
+    rng = np.random.default_rng(19)
+    x = (0.003 * (rng.normal(size=(2, 200 * sps)) + 1j * rng.normal(size=(2, 200 * sps))))
+    x = x.astype(np.complex64)
+    for c in range(2):
+        for sym, cfo in ((4 + 9 * c, 210.0 * c), (80 + 20 * c, -330.0)):
+            pkt = modulate_frame(cfg, b"\xde\xad\xbe\xef" + bytes([c]), cfo_hz=cfo,
+                                 snr_db=30.0, seed=sym)
+            x[c, sym * sps + 101 * c: sym * sps + 101 * c + len(pkt)] += pkt
+    kw = dict(max_candidates=3, max_symbols=24, sfd_search=12)
+    rx_gpu = DenseReceiver(cfg, **kw, device=cuda_device)
+    rx_cpu = DenseReceiver(cfg, **kw, device="cpu")
+    assert rx_gpu.method == rx_cpu.method == "gradient"
+    got = rx_gpu.run(x)
+    want = rx_cpu.run(x)
+    assert len(got) == len(want) == 4
+    for g, w in zip(got, want):
+        assert (g.phy_header.to_bytes(), g.payload, g.channel, g.sample_index) == \
+            (w.phy_header.to_bytes(), w.payload, w.channel, w.sample_index)
+        assert g.crc_ok is True
+        assert g.cfo == pytest.approx(w.cfo, abs=1.0)
+        assert g.snr == pytest.approx(w.snr, rel=1e-5)
 
 
 # M, n_vec, K, tail samples: the bench branch count, ragged branch tiles

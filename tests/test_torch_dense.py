@@ -159,7 +159,7 @@ def test_pack_unpack_roundtrip():
 
 
 @pytest.mark.parametrize("kw,extra", [
-    (dict(sf=7, samp_rate=1e6), {}),                                # auto -> gradient
+    (dict(sf=7, samp_rate=1e6, implicit=True), dict(demod_method="gradient")),
     (dict(sf=7, samp_rate=250e3, implicit=True), {}),
     (dict(sf=7, samp_rate=250e3), dict(low_snr=True)),
 ])
