@@ -11,9 +11,11 @@ Phases, each of which passes or exits non-zero:
    ``nvcc`` per source, all started together;
 3. each kernel against its plain torch version on the card, float32 and
    bfloat16, at the main paths' shapes and at ragged and odd geometries
-   (the multi-lag kernel also at both plan gateways' planes; the fused
-   plan channelizer, float32 only, at both plan shapes, a ragged L, C =
-   1, D = 2, D = 1 and past the TPU kernel's gate); the detection
+   (the polyphase FIR bit-equal, in its vector and scalar
+   instantiations, the gateway's shape included; the multi-lag kernel
+   also at both plan gateways' planes; the fused plan channelizer,
+   float32 only, at both plan shapes, a ragged L, C = 1, D = 2, D = 1
+   and past the TPU kernel's gate); the detection
    metric's staged "tile" kernel and its window-major kernel at the same
    shapes as the "pp" kernel, the dense bench block's included;
 4. the dense path at full width: the dense receiver (fft engine) on the
@@ -56,7 +58,9 @@ Phases, each of which passes or exits non-zero:
    bench block (the decode gate, ``run()`` against the CPU, its median
    call beside the fft engine's);
 11. each kernel's time beside its bound, its plain version's time and a
-   library call's time where one computes the same function.
+   library call's time where one computes the same function (the
+   polyphase FIR at the wideband shape, float32 and bf16 out, and at the
+   gateway's; the gateway's numbers also go into its ``kernels`` entry).
 
 The line before the last is the ``kernels`` JSON line; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -75,11 +79,6 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 TOL_CORR_ATOL = 2e-5     # corr: |dot|/sqrt(e e), sums in another order
 TOL_ENER_RTOL = 1e-5     # energies: float32 sums of up to 32768 squares
-# polyphase FIR, float32 out: absolute, times sum_j |h_j| * max|x| (the
-# kernel sums the same products in the same order; the bound allows a
-# reordering of K float32 sums)
-TOL_FIR_F32 = 1e-6
-TOL_FIR_BF16 = 2.0 ** -7  # bf16 out: one bf16 ulp of the plain result (relative)
 # multi-lag rows: energies relative; each lag product absolute, times
 # sqrt(e_r * e_{r+l}) (its Cauchy-Schwarz scale): float32 sums in another order
 TOL_LAG_E_RTOL = 1e-5
@@ -222,54 +221,61 @@ def phase_kernel_vs_plain() -> float:
 
 
 def phase_pfb_vs_plain() -> float:
-    """K4 against its plain version on the card. Returns the largest
-    absolute error of the float32 outputs."""
+    """K4 against its plain version on the card: bit-equal (every dtype
+    pair) at every checked geometry, through the vector instantiation
+    where ``_pfb_vector_width`` allows it and the scalar one where the
+    plane stride or M does not. Returns the largest absolute difference of
+    the float32 outputs (0 when it passes)."""
     import torch
 
-    from lora_tpu_torch.ops.cuda_kernels import pfb_fir_kernel, pfb_fir_planes
+    from lora_tpu_torch.ops.cuda_kernels import (_pfb_vector_width, pfb_fir_kernel,
+                                                 pfb_fir_planes)
 
     gen = torch.Generator(device="cuda").manual_seed(4321)
-    # (M, n_vec, K, tail samples past n_vec * M): the wideband bench at
-    # M = 1024 and 4096; M = 8 and 1000 (ragged branch tiles); n_vec not a
-    # multiple of 16; K = 1 and 16; K = 37 (three tap passes); n_vec = K
-    # (one output row); L not a multiple of M
-    geoms = [(1024, 24576, 10, 0), (4096, 24576, 10, 0), (8, 4000, 10, 0),
-             (1000, 517, 10, 0), (128, 533, 10, 0), (256, 300, 1, 0),
-             (256, 300, 16, 0), (64, 400, 37, 0), (512, 10, 10, 0),
-             (1024, 200, 10, 333)]
+    # (M, n_vec, K, tail samples past n_vec * M, plane stride one sample
+    # longer than L, dtype pairs): the wideband bench at M = 1024 and
+    # 4096; the gateway (float32 in, bf16 out); M = 8 and 1000 (ragged
+    # branch tiles); n_vec off the step grid; K = 1 and 16; K = 37 (six
+    # tap passes); n_vec = K (one output row); then the scalar
+    # instantiation: L not a multiple of 4 samples, M = 1001 and 6, an odd
+    # plane stride
+    f32_in = ((torch.float32, torch.float32), (torch.float32, torch.bfloat16))
+    both = f32_in + ((torch.bfloat16, torch.float32), (torch.bfloat16, torch.bfloat16))
+    geoms = [(1024, 24576, 10, 0, False, both), (4096, 24576, 10, 0, False, f32_in),
+             (256, 450560, 10, 0, False, ((torch.float32, torch.bfloat16),)),
+             (8, 4000, 10, 0, False, f32_in), (1000, 517, 10, 0, False, both),
+             (128, 533, 10, 0, False, f32_in), (256, 300, 1, 0, False, f32_in),
+             (256, 300, 16, 0, False, f32_in), (64, 400, 37, 0, False, both),
+             (512, 10, 10, 0, False, f32_in), (1024, 200, 10, 333, False, both),
+             (1001, 300, 10, 0, False, both), (6, 5000, 10, 0, False, both),
+             (256, 400, 10, 0, True, both)]
     worst = 0.0
-    for M, n_vec, K, tail in geoms:
-        x32 = torch.randn((2, n_vec * M + tail), generator=gen, device="cuda")
+    for M, n_vec, K, tail, odd, pairs in geoms:
+        L = n_vec * M + tail
+        x32 = torch.randn((2, L + odd), generator=gen, device="cuda")
         h = 0.1 * torch.randn((K, M), generator=gen, device="cuda")
-        in_dtypes = (torch.float32, torch.bfloat16) if M in (1024, 1000) else (torch.float32,)
-        for in_dtype in in_dtypes:
-            x = x32.to(in_dtype)
-            for out in (torch.float32, torch.bfloat16):
-                before = pfb_fir_kernel.launches
-                got = pfb_fir_kernel(x, h, out)
-                torch.cuda.synchronize()
-                check(pfb_fir_kernel.launches == before + 1,
-                      "the pfb_fir launch count did not rise")
-                ref = pfb_fir_planes(x, h, out)
-                shape = (2, n_vec - K + 1, M)
-                check(tuple(got.shape) == shape and got.dtype == out,
-                      f"pfb_fir: {tuple(got.shape)} {got.dtype}, expected {shape} {out}")
-                check(bool(torch.isfinite(got).all()), "pfb_fir: non-finite output")
-                diff = (got.float() - ref.float()).abs()
-                err = float(diff.max())
-                label = (f"pfb_fir {str(in_dtype)[6:]}->{str(out)[6:]} M={M} "
-                         f"n_vec={n_vec} K={K} tail={tail}")
-                if out == torch.float32:
-                    tol = (TOL_FIR_F32 * float(h.abs().sum(0).max())
-                           * float(x.float().abs().max()))
-                    print(f"{label}: max abs err {err:.3g} (tolerance {tol:.3g})")
-                    check(err <= tol, f"{label}: error {err} > {tol}")
-                    worst = max(worst, err)
-                else:
-                    over = int((diff > TOL_FIR_BF16 * ref.float().abs()).sum())
-                    print(f"{label}: max abs err {err:.3g}, {over} outputs past one bf16 ulp")
-                    check(over == 0, f"{label}: {over} outputs past one bf16 ulp")
-                del got, ref, diff
+        for in_dtype, out in pairs:
+            x = x32.to(in_dtype)[:, :L]
+            vec = _pfb_vector_width(x, h, torch.empty(0, dtype=out, device="cuda"))
+            before = pfb_fir_kernel.launches
+            got = pfb_fir_kernel(x, h, out)
+            torch.cuda.synchronize()
+            check(pfb_fir_kernel.launches == before + 1, "the pfb_fir launch count did not rise")
+            ref = pfb_fir_planes(x, h, out)
+            shape = (2, n_vec - K + 1, M)
+            check(tuple(got.shape) == shape and got.dtype == out,
+                  f"pfb_fir: {tuple(got.shape)} {got.dtype}, expected {shape} {out}")
+            check(bool(torch.isfinite(got).all()), "pfb_fir: non-finite output")
+            err = float((got.float() - ref.float()).abs().max())
+            label = (f"pfb_fir {str(in_dtype)[6:]}->{str(out)[6:]} M={M} n_vec={n_vec} K={K} "
+                     f"tail={tail} plane stride {x.stride(0)}, {vec} branches a thread")
+            print(f"{label}: max abs err {err:.3g} (must be 0: bit-equal)")
+            check(err == 0 and torch.equal(got, ref), f"{label}: not bit-equal, error {err}")
+            if out == torch.float32:
+                worst = max(worst, err)
+            del got, ref, x
+        del x32
+    torch.cuda.empty_cache()
     return worst
 
 
@@ -1458,6 +1464,53 @@ def phase_variant_times(xd, sps: int) -> dict:
     return out
 
 
+def pfb_times(xd, h, dtype, kernel=None, n: int = 20) -> dict:
+    """K4 on the planes ``xd [2, L]`` with the taps ``h [K, M]`` into
+    ``dtype``: its time (``kernel()``, by default the port's wrapper; CUDA
+    events, mean of ``n`` launches), the plain version's, and the
+    ``conv1d(groups=M)`` yardstick's (cuDNN, TF32 off, on the planes
+    pre-transposed to ``[2, M, n_vec]`` outside the timing, operands in
+    ``dtype``; conv1d correlates, so its weights are the taps as they
+    stand), beside the bound: the planes and taps read once and the output
+    written once at the memory rate, or one multiply and one add a tap and
+    output at the float32 rate, whichever is longer."""
+    import torch
+
+    from lora_tpu_torch.ops.cuda_kernels import pfb_fir_kernel, pfb_fir_planes
+
+    K, M = h.shape
+    n_vec = xd.shape[-1] // M
+    n_out = n_vec - K + 1
+    out_size = torch.empty((), dtype=dtype).element_size()
+    t_bytes = (2 * n_vec * M * xd.element_size() + K * M * 4
+               + 2 * n_out * M * out_size) / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * K * 2 * n_out * M / F32_FLOPS_PER_S * 1e3
+    xt = xd[:, : n_vec * M].reshape(2, n_vec, M).transpose(1, 2).contiguous().to(dtype)
+    w = h.t().contiguous().to(dtype).unsqueeze(1)            # [M, 1, K]
+    conv = torch.nn.functional.conv1d(xt, w, groups=M)      # [2, M, n_out]
+    ref = pfb_fir_planes(xd, h, dtype)
+    lib_err = float((conv.float().transpose(1, 2) - ref.float()).abs().max())
+    del conv, ref
+    kernel = kernel or (lambda: pfb_fir_kernel(xd, h, dtype))
+    st = dict(ms=cuda_ms(kernel, n),
+              plain_ms=cuda_ms(lambda: pfb_fir_planes(xd, h, dtype), 3),
+              library_ms=cuda_ms(lambda: torch.nn.functional.conv1d(xt, w, groups=M), n),
+              bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
+              t_bytes=t_bytes, t_ops=t_ops, lib_err=lib_err,
+              shape=f"{str(xd.dtype)[6:]}->{str(dtype)[6:]} at M={M} n_vec={n_vec} K={K}")
+    del xt, w
+    torch.cuda.empty_cache()
+    return st
+
+
+def print_pfb_times(label: str, st: dict, extra: str = "") -> None:
+    print(f"pfb_fir {label} {st['shape']}: kernel {st['ms']:.4f} ms "
+          f"({100 * st['bound_ms'] / st['ms']:.1f} % of the bound), plain "
+          f"{st['plain_ms']:.4f} ms, conv1d(groups=M) {st['library_ms']:.4f} ms (max abs diff to "
+          f"plain {st['lib_err']:.3g}), bound {st['bound_ms']:.4f} ms (bytes "
+          f"{st['t_bytes']:.4f}, ops {st['t_ops']:.4f})" + (f", {extra}" if extra else ""))
+
+
 def phase_kernel_times(rx, planes, launches, worst_err, receivers, xd_wide,
                        wide_launches, worst_fir, gw, xd_gw, gw_launches, worst_lag,
                        plans, worst_fused, variants, tools, worst_variants):
@@ -1465,8 +1518,7 @@ def phase_kernel_times(rx, planes, launches, worst_err, receivers, xd_wide,
 
     from lora_tpu_torch.ops.cuda_kernels import (detection_metrics_kernel,
                                                  detection_metrics_planes,
-                                                 lag_rows_kernel, lag_rows_planes,
-                                                 pfb_fir_kernel, pfb_fir_planes)
+                                                 lag_rows_kernel, lag_rows_planes)
 
     sps = rx.sps
     stats = {}
@@ -1488,41 +1540,15 @@ def phase_kernel_times(rx, planes, launches, worst_err, receivers, xd_wide,
               f"{st['bound_ms']:.4f} ms (bytes {t_bytes:.4f}, ops {t_ops:.4f}), "
               f"launches per process() {launches[dtype]['det_metrics']}")
 
-    # K4 at the wideband path's shape: float32 planes in, the receiver's
-    # plane dtype out
+    # K4 at the wideband path's shape (float32 planes in, the receiver's
+    # plane dtype out) and at the gateway's (float32 in, bf16 out)
     fir = {}
     for dtype, wr in receivers.items():
-        h = wr.pfb._h
-        K, M = h.shape
-        n_vec = xd_wide.shape[-1] // M
-        n_out = n_vec - K + 1
-        out_size = torch.empty((), dtype=dtype).element_size()
-        # bytes: planes read once, taps read once, output written once;
-        # operations: one multiply and one add a tap and output
-        t_bytes = (2 * n_vec * M * xd_wide.element_size() + K * M * 4
-                   + 2 * n_out * M * out_size) / HBM_BYTES_PER_S * 1e3
-        t_ops = 2 * K * 2 * n_out * M / F32_FLOPS_PER_S * 1e3
-        # library yardstick: one grouped conv1d (cuDNN, TF32 off) on the
-        # planes pre-transposed to [2, M, n_vec] outside the timing; conv1d
-        # correlates, so its weights are the taps h[:, m] as they stand
-        xt = xd_wide[:, : n_vec * M].reshape(2, n_vec, M).transpose(1, 2).contiguous().to(dtype)
-        w = h.t().contiguous().to(dtype).unsqueeze(1)            # [M, 1, K]
-        conv = torch.nn.functional.conv1d(xt, w, groups=M)      # [2, M, n_out]
-        ref = pfb_fir_planes(xd_wide, h, dtype)
-        lib_err = float((conv.float().transpose(1, 2) - ref.float()).abs().max())
-        st = dict(ms=cuda_ms(lambda: pfb_fir_kernel(xd_wide, h, dtype), 20),
-                  plain_ms=cuda_ms(lambda: pfb_fir_planes(xd_wide, h, dtype), 5),
-                  library_ms=cuda_ms(lambda: torch.nn.functional.conv1d(xt, w, groups=M), 20),
-                  bound_ms=max(t_bytes, t_ops),
-                  bound_by="bytes" if t_bytes >= t_ops else "operations")
-        fir[dtype] = st
-        del xt, conv, ref
-        print(f"pfb_fir float32->{str(dtype)[6:]} at M={M} n_vec={n_vec} K={K}: kernel "
-              f"{st['ms']:.4f} ms, plain {st['plain_ms']:.4f} ms, conv1d(groups=M) "
-              f"{st['library_ms']:.4f} ms (input pre-transposed to [2, M, n_vec] outside "
-              f"the timing, {str(dtype)[6:]} operands; max abs diff to plain {lib_err:.3g}), "
-              f"bound {st['bound_ms']:.4f} ms (bytes {t_bytes:.4f}, ops {t_ops:.4f}), "
-              f"launches per process() {wide_launches[dtype]['pfb_fir']}")
+        fir[dtype] = pfb_times(xd_wide, wr.pfb._h, dtype)
+        print_pfb_times(f"wideband-{wr.M}", fir[dtype],
+                        f"launches per process() {wide_launches[dtype]['pfb_fir']}")
+    fir_gw = pfb_times(xd_gw, gw.pfb._h, gw.plane_dtype)
+    print_pfb_times(f"gateway-{gw.M}", fir_gw, f"launches per process() {gw_launches['pfb_fir']}")
     # K3 at the gateway's shape: the bf16 channel planes, rows of one SF7
     # symbol, every SF's lag
     cp = gw.pfb.planes(xd_gw, out_dtype=gw.plane_dtype).contiguous()
@@ -1609,6 +1635,8 @@ def phase_kernel_times(rx, planes, launches, worst_err, receivers, xd_wide,
         "bound_ms": sf["bound_ms"],
         "bound_by": sf["bound_by"],
         "library_ms": sf["library_ms"],
+        "gateway": {k: fir_gw[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                           "library_ms")} | {"launches": gw_launches["pfb_fir"]},
     }, {
         "name": "lag_rows",
         "route": "cuda",

@@ -215,31 +215,74 @@ def detection_metrics_wm_kernel(xw: torch.Tensor):
 detection_metrics_wm_kernel.launches = 0
 
 
+def bind_pfb_lib(lib):
+    """Declare the C entry points of a library built from
+    ``csrc/pfb_fir.cu`` (the port's, or a tuning variant's); returns
+    ``lib``."""
+    return _bind(lib, "pfb_fir",
+                 [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 6
+                 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+
+
 @functools.cache
 def _pfb_lib():
     from ._build import load
 
-    return _bind(load("pfb_fir"), "pfb_fir",
-                 [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 6
-                 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    return bind_pfb_lib(load("pfb_fir"))
+
+
+def _pfb_vector_width(xf: torch.Tensor, h_poly: torch.Tensor, out: torch.Tensor) -> int:
+    """Branches a thread of the polyphase FIR kernel owns: 16 bytes of
+    input (4 float32 or 8 bfloat16 samples) when every such chunk of the
+    planes ``xf`` and of the taps ``h_poly [K, M]`` is 16-byte aligned (the
+    planes' base, their plane stride, ``M`` and the taps' base) and the
+    ``[R, 2, M]`` buffer ``out`` takes stores of as many outputs; else 1,
+    the kernel's scalar instantiation."""
+    v = 16 // xf.element_size()
+    store = min(16, v * out.element_size())
+    if (xf.data_ptr() % 16 or xf.stride(0) * xf.element_size() % 16 or h_poly.shape[1] % v
+            or h_poly.data_ptr() % 16 or out.data_ptr() % store):
+        return 1
+    return v
+
+
+def pfb_fir_launch(lib, xf, h_poly, out) -> None:
+    """Launch ``lib``'s polyphase FIR kernel on checked CUDA tensors (see
+    :func:`pfb_fir_kernel`) into ``out`` ``[R, 2, M]``, at the width
+    :func:`_pfb_vector_width` picks, on the planes' device and its current
+    stream; raises ``RuntimeError`` when the launch fails."""
+    K, M = h_poly.shape
+    with torch.cuda.device(xf.device):  # the C entry launches on the current device
+        rc = lib.pfb_fir_launch(
+            xf.data_ptr(), h_poly.data_ptr(), out.data_ptr(), M, K, xf.shape[-1] // M,
+            xf.stride(0), M, 2 * M, _DTYPE_CODE[xf.dtype], _DTYPE_CODE[out.dtype],
+            _pfb_vector_width(xf, h_poly, out), torch.cuda.current_stream().cuda_stream)
+    _check_rc(lib, "pfb_fir", rc)
 
 
 def pfb_fir_kernel(xf: torch.Tensor, h_poly: torch.Tensor,
                    out_dtype=torch.float32, out=None) -> torch.Tensor:
     """Polyphase branch FIR of packed wideband planes ``[2, L]`` (float32
     or bfloat16) with float32 taps ``[K, M]``: ``[2, n_out, M]`` in
-    ``out_dtype``, as :func:`pfb_fir_planes` computes it (``n_vec = L //
-    M``, ``n_out = n_vec - K + 1``).
+    ``out_dtype``, as :func:`pfb_fir_planes` computes it, bit for bit
+    (``n_vec = L // M``, ``n_out = n_vec - K + 1``).
 
     CPU tensors: the plain version. CUDA tensors: the kernel, which reads
     the planes where they lie (each plane's samples contiguous, any plane
     stride, so ``xf[:, :n]`` needs no copy) and writes an ``[n_out, 2, M]``
     buffer, returned as its ``[2, n_out, M]`` view: its rows ``[fr | fi]``
-    are what the DFT product reads. ``out``: an optional contiguous
-    ``[R, 2, M]`` buffer (``R >= n_out``, ``out_dtype``, on the planes'
-    device) whose first ``n_out`` rows take the result (on the CPU by a
-    copy); the others are left as they are. Raises on any other dtype,
-    shape, layout or device, and when ``n_vec < K``.
+    are what the DFT product reads. It launches the kernel's vector
+    instantiation (a thread owns 16 bytes of input: 4 float32 or 8 bfloat16
+    branches) where :func:`_pfb_vector_width` finds the planes and the
+    output aligned for it, else its scalar instantiation (one branch a
+    thread, e.g. an odd plane stride or ``M``). ``out``: an optional
+    contiguous ``[R, 2, M]`` buffer (``R >= n_out``, ``out_dtype``, on the
+    planes' device) whose first ``n_out`` rows take the result (on the CPU
+    by a copy); the others are left as they are. Raises on any other dtype,
+    shape, layout or device, and when ``n_vec < K``; on the card a launch
+    also raises ``RuntimeError`` for a K whose shared-memory row ring does
+    not fit (past 359 taps a branch for aligned float32 planes; the limits
+    are in ``csrc/pfb_fir.cu``).
     """
     if not isinstance(xf, torch.Tensor) or not isinstance(h_poly, torch.Tensor):
         raise TypeError("pfb_fir_kernel takes torch tensors")
@@ -277,13 +320,7 @@ def pfb_fir_kernel(xf: torch.Tensor, h_poly: torch.Tensor,
         raise ValueError("the polyphase FIR kernel reads contiguous plane rows and taps")
     if out is None:
         out = torch.empty((n_out, 2, M), dtype=out_dtype, device=xf.device)
-    lib = _pfb_lib()
-    with torch.cuda.device(xf.device):  # the C entry launches on the current device
-        rc = lib.pfb_fir_launch(
-            xf.data_ptr(), h_poly.data_ptr(), out.data_ptr(), M, K, n_vec,
-            xf.stride(0), M, 2 * M, _DTYPE_CODE[xf.dtype], _DTYPE_CODE[out_dtype],
-            torch.cuda.current_stream().cuda_stream)
-    _check_rc(lib, "pfb_fir", rc)
+    pfb_fir_launch(_pfb_lib(), xf, h_poly, out)
     pfb_fir_kernel.launches += 1
     return out[:n_out].transpose(0, 1)
 

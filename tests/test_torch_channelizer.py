@@ -31,7 +31,7 @@ from lora_tpu.ops.xfer import pack_iq as jpack_iq
 from lora_tpu_torch import PolyphaseChannelizer
 from lora_tpu_torch import channelizer as ch
 from lora_tpu_torch.convert import load_channelizer
-from lora_tpu_torch.ops.cuda_kernels import pfb_fir_kernel, pfb_fir_planes
+from lora_tpu_torch.ops.cuda_kernels import _pfb_vector_width, pfb_fir_kernel, pfb_fir_planes
 from lora_tpu_torch.ops.xfer import pack_iq
 
 
@@ -138,6 +138,45 @@ def test_wrapper_writes_into_a_padded_buffer():
 def test_wrapper_refuses(xf, h, out, err):
     with pytest.raises(err):
         pfb_fir_kernel(xf, h, out)
+
+
+def _width_case(case):
+    """``(planes, taps, output buffer)`` of a vector-width case, built when
+    the test runs."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    in_dt = bf16 if "bf16-in" in case else f32
+    out_dt = bf16 if "bf16-out" in case else f32
+    M = {"odd-M": 1001, "M-6": 6, "M-1020": 1020}.get(case.split(":")[0], 1024)
+    L = 8 * M
+    xf = torch.zeros((2, L), dtype=in_dt)
+    h = torch.ones((4, M))
+    out = torch.empty((5, 2, M), dtype=out_dt)
+    if case.startswith("odd-stride"):
+        xf = torch.zeros((2, L + 1), dtype=in_dt)[:, :L]
+    elif case.startswith("offset-planes"):
+        xf = torch.zeros((2, L + 1), dtype=in_dt)[:, 1:]
+    elif case.startswith("offset-taps"):
+        h = torch.ones(4 * M + 1)[1:].view(4, M)
+    elif case.startswith("offset-out"):
+        out = torch.empty(10 * M + 1, dtype=out_dt)[1:].view(5, 2, M)
+    return xf, h, out
+
+
+@pytest.mark.parametrize("case,want", [
+    ("aligned:f32-in,f32-out", 4), ("aligned:f32-in,bf16-out", 4),
+    ("aligned:bf16-in,f32-out", 8), ("aligned:bf16-in,bf16-out", 8),
+    ("odd-stride:f32-in", 1), ("odd-stride:bf16-in", 1),
+    ("odd-M:f32-in", 1), ("odd-M:bf16-in", 1), ("M-6:f32-in", 1),
+    ("M-1020:f32-in", 4), ("M-1020:bf16-in", 1),
+    ("offset-planes:f32-in", 1), ("offset-taps:f32-in", 1),
+    ("offset-out:f32-in,f32-out", 1), ("offset-out:bf16-in,bf16-out", 1),
+])
+def test_vector_width(case, want):
+    """The polyphase FIR kernel's width: 16 bytes of input a thread (4
+    float32 or 8 bf16 branches) where the planes' base and stride, M, the
+    taps and the output buffer allow it, else the scalar instantiation."""
+    xf, h, out = _width_case(case)
+    assert _pfb_vector_width(xf, h, out) == want
 
 
 # (M, max_dft_matmul, extra samples): single-stage DFT product, the

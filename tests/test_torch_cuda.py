@@ -10,9 +10,9 @@ installed:
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 
 Tolerances: corr atol 2e-5, energies rtol 1e-5 (float32 sums in another
-order); the polyphase FIR float32 within ``1e-6 * sum_j |h_j| * max|x|``
-and bf16 within one bf16 ulp (``2^-7`` of the plain result); the
-multi-lag rows' energies rtol 1e-5 and each lag product within ``1e-5 *
+order); the polyphase FIR bit-equal to its plain version (the same
+products summed in the same order, cast once) for every dtype pair, in
+its vector and its scalar instantiation; the multi-lag rows' energies rtol 1e-5 and each lag product within ``1e-5 *
 sqrt(e_r * e_{r+l})``; the fused channelizer within ``2 * (2DK + 4) *
 2^-24 * sum|g2 row| * max|x|`` (twice the worst-case float32 rounding of
 a sum of 2DK products, plus the ramp's products); receiver results as in
@@ -33,7 +33,8 @@ from lora_tpu_torch.ops.cuda_kernels import (detection_metrics_kernel,
                                              fused_channelize_kernel,
                                              fused_channelize_planes,
                                              lag_rows_kernel, lag_rows_planes,
-                                             pfb_fir_kernel, pfb_fir_planes)
+                                             _pfb_vector_width, pfb_fir_kernel,
+                                             pfb_fir_planes)
 from lora_tpu_torch.ops.xfer import pack_iq
 from lora_tpu_torch.tx.modulator import modulate_frame
 
@@ -197,12 +198,14 @@ def test_gradient_receiver_on_card_matches_cpu(cuda_device):
         assert g.snr == pytest.approx(w.snr, rel=1e-5)
 
 
-# M, n_vec, K, tail samples: the bench branch count, ragged branch tiles
-# (8, 1000), n_vec off the 16 grid, K = 1, 16 and 37 (three tap passes),
-# one output row, L not a multiple of M
-FIR_GEOMS = [(1024, 200, 10, 0), (8, 700, 10, 0), (1000, 41, 10, 0), (128, 533, 10, 0),
-             (256, 90, 1, 0), (256, 90, 16, 0), (64, 100, 37, 0), (512, 10, 10, 0),
-             (1024, 50, 10, 333)]
+# M, n_vec, K, tail samples: the bench branch count, the gateway's, ragged
+# branch tiles (8, 1000), n_vec off the step grid (the last run not full),
+# K = 1, 16 and 37 (tap passes of 8, 4, 2 and 1), one output row; then the
+# scalar instantiation: L not a multiple of 4 samples (an unaligned plane
+# stride), M = 1001 and M = 6
+FIR_GEOMS = [(1024, 200, 10, 0), (256, 1500, 10, 0), (8, 700, 10, 0), (1000, 41, 10, 0),
+             (128, 533, 10, 0), (256, 90, 1, 0), (256, 90, 16, 0), (64, 100, 37, 0),
+             (512, 10, 10, 0), (1024, 50, 10, 333), (1001, 40, 10, 0), (6, 700, 10, 0)]
 
 
 @pytest.mark.parametrize("out", [torch.float32, torch.bfloat16])
@@ -219,19 +222,22 @@ def test_pfb_fir_kernel_matches_plain(cuda_device, M, n_vec, K, tail, in_dtype, 
     assert pfb_fir_kernel.launches == before + 1
     want = pfb_fir_planes(x, h, out)
     assert got.shape == want.shape == (2, n_vec - K + 1, M) and got.dtype == out
-    diff = (got.float() - want.float()).abs()
-    if out == torch.float32:
-        bound = 1e-6 * float(h.abs().sum(0).max()) * float(x.float().abs().max())
-        assert float(diff.max()) <= bound
-    else:
-        assert bool((diff <= 2.0 ** -7 * want.float().abs()).all())
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert torch.equal(got, want)
 
 
-def test_pfb_fir_kernel_reads_a_strided_view(cuda_device):
-    """Planes cut from a longer buffer keep its row stride: no copy."""
-    x = torch.randn((2, 5000), device=cuda_device)[:, :4100]
-    h = torch.randn((10, 100), device=cuda_device)
-    torch.testing.assert_close(pfb_fir_kernel(x, h), pfb_fir_planes(x, h), rtol=0, atol=1e-5)
+@pytest.mark.parametrize("out", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("in_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("stride,vector", [(5000, True), (4103, False)])
+def test_pfb_fir_kernel_reads_a_strided_view(cuda_device, stride, vector, in_dtype, out):
+    """Planes cut from a longer buffer keep its row stride: no copy. An
+    aligned stride takes the vector instantiation, an odd one the scalar."""
+    x = torch.randn((2, stride), device=cuda_device).to(in_dtype)[:, :4100]
+    h = torch.randn((10, 100 if in_dtype == torch.float32 else 200), device=cuda_device)
+    want_width = 16 // x.element_size() if vector else 1
+    assert _pfb_vector_width(x, h, torch.empty((1, 2, h.shape[1]), dtype=out,
+                                               device=cuda_device)) == want_width
+    assert torch.equal(pfb_fir_kernel(x, h, out), pfb_fir_planes(x, h, out))
 
 
 def test_pfb_fir_kernel_writes_into_a_padded_buffer(cuda_device):
@@ -242,6 +248,19 @@ def test_pfb_fir_kernel_writes_into_a_padded_buffer(cuda_device):
     assert got.data_ptr() == buf.data_ptr()
     torch.testing.assert_close(got, pfb_fir_planes(x, h), rtol=0, atol=0)
     assert bool((buf[41:] == 7.0).all())
+
+
+def test_pfb_fir_kernel_refuses_a_ring_past_shared_memory(cuda_device):
+    """The kernel keeps K - 1 + 3 steps of rows in shared memory: 359 taps a
+    branch fit for aligned float32 planes, 360 are refused at launch."""
+    for K, fits in ((359, True), (360, False)):
+        x = torch.randn((2, 128 * (K + 3)), device=cuda_device)
+        h = 0.01 * torch.randn((K, 128), device=cuda_device)
+        if fits:
+            assert torch.equal(pfb_fir_kernel(x, h), pfb_fir_planes(x, h))
+        else:
+            with pytest.raises(RuntimeError, match="pfb_fir launch failed"):
+                pfb_fir_kernel(x, h)
 
 
 @pytest.mark.parametrize("case", ["fp16", "three-planes", "strided-rows", "taps-on-cpu",
