@@ -84,9 +84,10 @@ TOL_ENER_RTOL = 1e-5     # energies: float32 sums of up to 32768 squares
 TOL_LAG_E_RTOL = 1e-5
 TOL_LAG_Q = 1e-5
 # fused plan channelizer: absolute, times sum|g2 row| * max|x|: twice the
-# worst-case float32 rounding of a sum of 2DK products (the kernel's FMAs
-# and the plain version's matmuls sum in other orders), plus the ramp's
-# four products
+# worst-case float32 rounding of a sum of 2DK products (the kernel's
+# factored sums and the plain version's folded matmuls sum in other
+# orders, with phasors rounded at other places), plus the ramp's four
+# products
 TOL_FUSED_ULPS = 2.0 ** -24
 GATEWAY_SFS = (7, 8, 9, 10, 11, 12)
 # bench.py --plan-gateway's geometries: (center Hz, sample rate)
@@ -363,10 +364,25 @@ def fused_min_ops(C: int, D: int, n_taps: int, n_out: int) -> int:
     each channel mixes each input sample once (a complex product, 6 flops;
     D samples an output), then applies the real taps to the mixed samples
     (a real-by-complex multiply-add, 4 flops a tap and output). The
-    phasors' own cost and the zero-padded taps are not counted. The kernel
-    computes the folded complex-tap form instead: ``2C x 2DK``
-    multiply-adds an output, ``8DK`` flops a channel and output."""
+    phasors' own cost and the zero-padded taps are not counted."""
     return C * n_out * (6 * D + 4 * n_taps)
+
+
+def fused_kernel_ops(C: int, D: int, n_taps: int, n_out: int) -> int:
+    """float32 operations the CUDA kernel (``csrc/fused_chan.cu``) issues,
+    an FMA counted as 2 (its factored form): the mix forms ``rho * phi``
+    and then ``x * (rho * phi)``, 8 FMA-pipe instructions a staged sample
+    and channel, over ``kT + J - 1`` staged rows a block of ``kT = 256``
+    outputs for each pass of ``J`` tap rows; the taps are ``2 D J`` FMAs a
+    channel, output and pass (the passes' padded rows included). Blocks
+    count whole; channel slots past ``C`` do not."""
+    K = -(-n_taps // D)
+    passes = -(-K // 16)
+    J = -(-K // passes)
+    tiles = -(-n_out // 256)
+    mix = 8 * D * (256 + J - 1) * passes * tiles
+    taps = 2 * D * J * passes * 256 * tiles
+    return 2 * C * (mix + taps)
 
 
 def phase_fused_vs_plain() -> float:
@@ -380,9 +396,9 @@ def phase_fused_vs_plain() -> float:
 
     gen = torch.Generator(device="cuda").manual_seed(2468)
     # (C, D, taps, L): the EU868 and US915 plan shapes (their own taps);
-    # a ragged L; C = 1; D = 2; D = 1; past the TPU kernel's gate (K = 151,
-    # and 2DK = 2016 with 63 tap rows: six tap-row stages); C = 9 (two
-    # channel groups) at D = 3
+    # a ragged L; C = 1; D = 2; D = 1 (two passes of 16 tap rows); past the
+    # TPU kernel's gate (K = 151: ten passes; 2DK = 2016 with 63 tap rows:
+    # four); C = 9 (two channel groups) at D = 3
     geoms = [(7, 8, 77, 3604480), (23, 32, 309, 14417920), (7, 8, 77, 100003),
              (1, 4, 19, 4429), (3, 2, 9, 2100), (2, 1, 31, 3000), (2, 2, 301, 5000),
              (3, 16, 1001, 40000), (9, 3, 20, 7777)]
@@ -395,10 +411,10 @@ def phase_fused_vs_plain() -> float:
             check(len(taps) == nt, f"plan taps {len(taps)} != {nt}")
         else:
             taps = np.random.default_rng(C * 100 + D).normal(0, 0.1, nt).astype(np.float32)
-        g2, ramp = fused_tables(offs, rate, taps, D, L, "cuda")
+        g2, ramp, mix = fused_tables(offs, rate, taps, D, L, "cuda")
         x = torch.randn((2, L), generator=gen, device="cuda")
         before = fused_channelize_kernel.launches
-        got = fused_channelize_kernel(x, g2, ramp, D, nt)
+        got = fused_channelize_kernel(x, g2, ramp, D, nt, mix)
         torch.cuda.synchronize()
         check(fused_channelize_kernel.launches == before + 1,
               "the fused_chan launch count did not rise")
@@ -1579,34 +1595,37 @@ def phase_kernel_times(rx, planes, launches, worst_err, receivers, xd_wide,
 
     fused = {}
     for plan, (pgw, xd, plaunches) in plans.items():
-        g2, L = pgw._g2, xd.shape[-1]
+        g2, mix, L = pgw._g2, pgw._mix, xd.shape[-1]
         ramp = pgw._tables[("fused", L)]
         C, D, nt = len(pgw.channels), pgw.decim, len(pgw.taps)
         n_out = (L - nt) // D + 1
         # operations: the least the function needs (fused_min_ops); bytes:
-        # the planes, G2 and the ramp read once, the output written once
+        # the planes, the kernel's tables (taps, phases, ramp) read once,
+        # the output written once
         t_ops = fused_min_ops(C, D, nt, n_out) / F32_FLOPS_PER_S * 1e3
-        t_bytes = (xd.numel() + g2.numel() + sum(r.numel() for r in ramp)
+        t_bytes = (xd.numel() + sum(t.numel() for t in (*mix, *ramp))
                    + C * 2 * n_out) * 4 / HBM_BYTES_PER_S * 1e3
         with full_f32_matmul():
             lib_fn, lib_mag = fused_library_call(pgw, xd)
-            out = fused_channelize_kernel(xd, g2, ramp, D, nt)
+            out = fused_channelize_kernel(xd, g2, ramp, D, nt, mix)
             mag_err = float((torch.hypot(out[:, 0], out[:, 1]) - lib_mag).abs().max())
-            st = dict(ms=cuda_ms(lambda: fused_channelize_kernel(xd, g2, ramp, D, nt), 20),
+            st = dict(ms=cuda_ms(lambda: fused_channelize_kernel(xd, g2, ramp, D, nt, mix), 20),
                       plain_ms=cuda_ms(lambda: fused_channelize_planes(xd, g2, ramp, D, nt,
                                                                        pgw._fused_tile), 5),
                       library_ms=cuda_ms(lib_fn, 20),
                       bound_ms=max(t_bytes, t_ops),
                       bound_by="bytes" if t_bytes >= t_ops else "operations")
         fused[plan] = st
+        issued = fused_kernel_ops(C, D, nt, n_out)
         del out, lib_mag, lib_fn
         print(f"fused_chan {plan} float32 at L={L} C={C} D={D} taps={nt} n_out={n_out}: kernel "
               f"{st['ms']:.4f} ms, plain {st['plain_ms']:.4f} ms, conv1d(stride=D, cuDNN TF32 "
               f"off; no output ramp) {st['library_ms']:.4f} ms (its |out| within {mag_err:.3g} "
               f"of the kernel's), bound {st['bound_ms']:.4f} ms (ops {t_ops:.4f}, bytes "
               f"{t_bytes:.4f}; {100 * st['bound_ms'] / st['ms']:.1f} % of it), "
-              f"{2 * g2.numel() * n_out / st['ms'] / 1e9:.1f} TFLOP/s of the kernel's own "
-              f"folded form ({2 * g2.numel() / (6 * D + 4 * nt) / C:.2f}x the least flops), "
+              f"{issued / st['ms'] / 1e9:.1f} TFLOP/s of the kernel's own factored form "
+              f"({issued / fused_min_ops(C, D, nt, n_out):.2f}x the least flops; "
+              f"{100 * issued / F32_FLOPS_PER_S * 1e3 / st['ms']:.1f} % of the float32 rate), "
               f"launches per process() {plaunches['fused_chan']}")
     torch.cuda.empty_cache()
     print(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")

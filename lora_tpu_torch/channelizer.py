@@ -378,16 +378,38 @@ def fused_ramp_factors(offsets_hz, samp_rate: float, decimation: int, n_taps: in
     return make_output_ramp_factors(offsets_hz, samp_rate, decimation, -(-n_out // tile), tile)
 
 
+def fused_mix_tables(offsets_hz, samp_rate: float, taps, decimation: int):
+    """The tables of the CUDA kernel's factored form (mix each input sample
+    per channel, then apply the real taps): ``(h, phi)`` float32, ``h``
+    the taps zero-padded to ``K*D`` (``K = ceil(len(taps) / D)``, the
+    layout of :func:`_decimating_fir`'s ``tpad``: ``h[j*D + d]``) and
+    ``phi`` ``[C, 2, D]`` the phase table ``exp(-2j pi frac(a_c d))``,
+    ``d < D``, reduced in float64 (:func:`make_mixer_factors` over ``D``
+    samples in one tile). With the output ramp's inner table ``rho_c[q] =
+    exp(-2j pi frac(a_c D q))`` the mixer of sample ``(n0 + q)*D + d`` is
+    ``ramp_c(n0) * rho_c[q] * phi_c[d]``."""
+    D = int(decimation)
+    taps = np.asarray(taps, np.float32)
+    K = -(-len(taps) // D)
+    h = np.zeros(K * D, np.float32)
+    h[:len(taps)] = taps
+    return h, make_mixer_factors(offsets_hz, samp_rate, D, tile=D)[1]
+
+
 def fused_tables(offsets_hz, samp_rate: float, taps, decimation: int, length: int, device,
                  tile: int = 1024):
     """The fused channelizer's tables for blocks of ``length`` samples, as
-    float32 tensors on ``device``: ``(g2, ramp)``, the
-    :func:`make_fused_fir_matrix` and the :func:`fused_ramp_factors`."""
+    float32 tensors on ``device``: ``(g2, ramp, mix)``, the
+    :func:`make_fused_fir_matrix` (the plain version's), the
+    :func:`fused_ramp_factors` (both's) and the :func:`fused_mix_tables`
+    ``(h, phi)`` (the CUDA kernel's)."""
     g2 = torch.as_tensor(make_fused_fir_matrix(offsets_hz, samp_rate, taps, decimation),
                          device=device)
     ramp = tuple(torch.as_tensor(r, device=device) for r in fused_ramp_factors(
         offsets_hz, samp_rate, decimation, len(taps), length, tile))
-    return g2, ramp
+    mix = tuple(torch.as_tensor(t, device=device)
+                for t in fused_mix_tables(offsets_hz, samp_rate, taps, decimation))
+    return g2, ramp, mix
 
 
 def fused_channelize_planes(xf: torch.Tensor, g2: torch.Tensor, ramp, decimation: int,

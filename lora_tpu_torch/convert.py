@@ -94,9 +94,10 @@ def load_plan_tables(gw, taps, g2, ramp=None, length=None) -> None:
     device, and optionally the ramp factors ``ramp = (o_re, o_im, i_re,
     i_im)`` for blocks of ``length`` wideband samples (``[C, nb]`` x2 and
     ``[C, tile]`` x2, ``nb = ceil(n_out / tile)``, tile the gateway's).
-    Raises ``ValueError`` for a shape that does not fit the gateway's
-    ``(C, D, K)``."""
-    from .channelizer import fused_out_len
+    The CUDA kernel's tables (``_mix``: the zero-padded taps and the phase
+    table) are rebuilt from the installed taps. Raises ``ValueError`` for a
+    shape that does not fit the gateway's ``(C, D, K)``."""
+    from .channelizer import fused_mix_tables, fused_out_len
 
     C, D = len(gw.channels), gw.decim
     taps = np.asarray(taps, np.float32)
@@ -116,6 +117,8 @@ def load_plan_tables(gw, taps, g2, ramp=None, length=None) -> None:
             raise ValueError(f"ramp: shapes {got}, expected {want}")
     gw.taps = taps
     gw._g2 = torch.as_tensor(np.ascontiguousarray(g2, np.float32), device=gw.device)
+    gw._mix = tuple(torch.as_tensor(t, device=gw.device)
+                    for t in fused_mix_tables(gw.offsets, gw.samp_rate, taps, D))
     gw._tables = {}
     if ramp is not None:
         gw._cached(("fused", int(length)),

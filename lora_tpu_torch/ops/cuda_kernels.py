@@ -396,10 +396,10 @@ def bind_fused_lib(lib):
     ``csrc/fused_chan.cu`` (the port's, or a tuning variant's); returns
     ``lib``."""
     return _bind(lib, "fused_chan",
-                 [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
-                 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2 + [ctypes.c_longlong]
-                 + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
-                                            ctypes.c_void_p])
+                 [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong]
+                 + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+                 + [ctypes.c_longlong] + [ctypes.c_void_p] * 2
+                 + [ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p])
 
 
 @functools.cache
@@ -409,42 +409,53 @@ def _fused_lib():
     return bind_fused_lib(load("fused_chan"))
 
 
-def fused_chan_launch(lib, xf, g2, ramp, decimation: int, n_taps: int, out) -> None:
+def fused_chan_launch(lib, xf, ramp, mix, decimation: int, n_taps: int, out) -> None:
     """Launch ``lib``'s fused channelizer kernel on checked CUDA tensors
     (see :func:`fused_channelize_kernel`) into ``out`` ``[C, 2, n_out]``,
     on the planes' device and its current stream; raises
-    ``RuntimeError`` when the launch fails."""
+    ``RuntimeError`` when the launch fails (also for a ``K`` past the
+    kernel's limit)."""
     o_re, o_im, i_re, i_im = ramp
+    h, phi = mix
     C, _, n_out = out.shape
     with torch.cuda.device(xf.device):  # the C entry launches on the current device
         rc = lib.fused_chan_launch(
-            xf.data_ptr(), xf.stride(0), xf.shape[-1], g2.data_ptr(), C, decimation,
-            -(-n_taps // decimation), o_re.data_ptr(), o_im.data_ptr(), o_re.shape[-1],
-            i_re.data_ptr(), i_im.data_ptr(), i_re.shape[-1], out.data_ptr(), n_out,
-            torch.cuda.current_stream().cuda_stream)
+            xf.data_ptr(), xf.stride(0), xf.shape[-1], h.data_ptr(), phi.data_ptr(), C,
+            decimation, -(-n_taps // decimation), o_re.data_ptr(), o_im.data_ptr(),
+            o_re.shape[-1], i_re.data_ptr(), i_im.data_ptr(), i_re.shape[-1], out.data_ptr(),
+            n_out, torch.cuda.current_stream().cuda_stream)
     _check_rc(lib, "fused_chan", rc)
 
 
 def fused_channelize_kernel(xf: torch.Tensor, g2: torch.Tensor, ramp, decimation: int,
-                            n_taps: int) -> torch.Tensor:
-    """Fused mix + decimating FIR + output ramp of packed wideband planes
-    ``[2, L]`` float32 for all ``C`` channels of the folded FIR matrix
-    ``g2`` ``[2C, K*2D]`` (``K = ceil(n_taps / D)``) and the ramp factors
-    ``(o_re, o_im, i_re, i_im)`` ``[C, nb]``, ``[C, nb]``, ``[C, tile]``,
-    ``[C, tile]`` float32 (``nb = ceil(n_out / tile)``): ``[C, 2, n_out]``
+                            n_taps: int, mix) -> torch.Tensor:
+    """Mix + decimating FIR + output ramp of packed wideband planes ``[2,
+    L]`` float32 for all ``C`` channels of a plan: ``[C, 2, n_out]``
     float32, ``n_out = (L - n_taps) // D + 1``, as
-    :func:`fused_channelize_planes` computes it.
+    :func:`fused_channelize_planes` computes it. The tables, all float32
+    (:func:`~lora_tpu_torch.channelizer.fused_tables` builds them): the
+    folded FIR matrix ``g2`` ``[2C, K*2D]`` (``K = ceil(n_taps / D)``),
+    the ramp factors ``(o_re, o_im, i_re, i_im)`` ``[C, nb]``, ``[C,
+    nb]``, ``[C, tile]``, ``[C, tile]`` (``nb = ceil(n_out / tile)``) and
+    ``mix = (h, phi)``, the zero-padded real taps ``[K*D]`` and the phase
+    table ``[C, 2, D]``.
 
-    CPU tensors: the plain version. CUDA tensors: the kernel, which reads
-    the planes where they lie (each plane's samples contiguous, any plane
-    stride); the tables must be contiguous. Raises on any other dtype,
-    shape, layout or device, and when the block is shorter than the filter.
+    CPU tensors: the plain version (folded: ``g2`` and the ramp). CUDA
+    tensors: the kernel (factored: the ramp, ``h`` and ``phi``), which
+    reads the planes where they lie (each plane's samples contiguous, any
+    plane stride); the tables must be contiguous, and the launch raises
+    ``RuntimeError`` for ``256 + K - 1 > tile``. Raises on any other
+    dtype, shape, layout or device, and when the block is shorter than the
+    filter.
     """
-    tens = (xf, g2, *ramp)
+    if not isinstance(mix, (tuple, list)) or len(mix) != 2:
+        raise TypeError("mix must be the pair (h, phi)")
+    tens = (xf, g2, *ramp, *mix)
     if len(ramp) != 4 or not all(isinstance(t, torch.Tensor) for t in tens):
         raise TypeError("fused_channelize_kernel takes torch tensors and four ramp factors")
     if any(t.dtype != torch.float32 for t in tens):
-        raise TypeError(f"planes, g2 and ramp must be float32, not {[t.dtype for t in tens]}")
+        raise TypeError(f"planes, g2, ramp and mix must be float32, not "
+                        f"{[t.dtype for t in tens]}")
     if any(t.device != xf.device for t in tens):
         raise ValueError(f"planes on {xf.device}, tables on {[str(t.device) for t in tens[1:]]}")
     if xf.ndim != 2 or xf.shape[0] != 2:
@@ -468,6 +479,10 @@ def fused_channelize_kernel(xf: torch.Tensor, g2: torch.Tensor, ramp, decimation
         raise ValueError(f"ramp factors must be [{C}, nb], [{C}, nb], [{C}, tile], [{C}, tile] "
                          f"with nb = ceil({n_out} / tile); got "
                          f"{[tuple(t.shape) for t in ramp]}")
+    h, phi = mix
+    if tuple(h.shape) != (K * D,) or tuple(phi.shape) != (C, 2, D):
+        raise ValueError(f"mix must be h [{K * D}] and phi [{C}, 2, {D}]; got "
+                         f"{tuple(h.shape)}, {tuple(phi.shape)}")
     if xf.device.type == "cpu":
         return fused_channelize_planes(xf, g2, ramp, D, n_taps, tile)
     if xf.device.type != "cuda":
@@ -475,7 +490,7 @@ def fused_channelize_kernel(xf: torch.Tensor, g2: torch.Tensor, ramp, decimation
     if xf.stride(1) != 1 or not all(t.is_contiguous() for t in tens[1:]):
         raise ValueError("the fused channelizer kernel reads contiguous plane rows and tables")
     out = torch.empty((C, 2, n_out), dtype=torch.float32, device=xf.device)
-    fused_chan_launch(_fused_lib(), xf, g2, ramp, D, n_taps, out)
+    fused_chan_launch(_fused_lib(), xf, ramp, mix, D, n_taps, out)
     fused_channelize_kernel.launches += 1
     return out
 

@@ -31,7 +31,8 @@ import numpy as np
 import torch
 
 from .channelizer import (channelize_list_planes_factored, firdes_low_pass,
-                          fused_ramp_factors, make_fused_fir_matrix, make_mixer_factors)
+                          fused_mix_tables, fused_ramp_factors, make_fused_fir_matrix,
+                          make_mixer_factors)
 from .config import LoRaConfig
 from .device import resolve_device
 from .io.frames import Frame
@@ -69,9 +70,13 @@ class PlanGateway:
     fused_channelize_kernel`, the hand-written kernel on the card); ``False``
     takes the factored path (mixer from two small tables, then the
     decimating FIR), the A/B control. Nothing chooses between them by
-    geometry or device. The folded FIR matrix ``_g2`` is built once, on the
-    device; the ramp factors (fused) or mixer factors (factored) are cached
-    on the device by block length, two lengths at most.
+    geometry or device. The fused channelizer's block-independent tables
+    are built once, on the device: ``_g2``, the folded FIR matrix its plain
+    version (the CPU) takes, and ``_mix``, the zero-padded real taps and
+    the phase table the CUDA kernel takes (it mixes per channel, then
+    applies the real taps); the ramp factors (fused) or mixer factors
+    (factored) are cached on the device by block length, two lengths at
+    most.
 
     ``device``: ``None`` is the card. ``dense_kwargs`` go to every SF's
     :class:`~lora_tpu_torch.rx.dense.DenseReceiver`.
@@ -147,6 +152,8 @@ class PlanGateway:
         self._fused_tile = 1024
         self._g2 = torch.as_tensor(
             make_fused_fir_matrix(self.offsets, samp_rate, self.taps, decim), device=self.device)
+        self._mix = tuple(torch.as_tensor(t, device=self.device) for t in fused_mix_tables(
+            self.offsets, samp_rate, self.taps, decim))
         self._tables = {}   # (kind, L) -> device tables, two entries at most
 
     @property
@@ -170,7 +177,8 @@ class PlanGateway:
         if self.fused:
             ramp = self._cached(("fused", L), lambda: fused_ramp_factors(
                 self.offsets, self.samp_rate, self.decim, len(self.taps), L, self._fused_tile))
-            return fused_channelize_kernel(xf, self._g2, ramp, self.decim, len(self.taps))
+            return fused_channelize_kernel(xf, self._g2, ramp, self.decim, len(self.taps),
+                                           self._mix)
         outer, inner = self._cached(("factored", L), lambda: make_mixer_factors(
             self.offsets, self.samp_rate, L))
         return channelize_list_planes_factored(xf, self.taps, outer, inner, self.decim)

@@ -427,12 +427,11 @@ FUSED_GEOMS = [(7, 8, 77, 3604480), (23, 32, 309, 14417920), (7, 8, 77, 100003),
                (1, 4, 19, 4429), (2, 1, 31, 3000), (2, 2, 301, 5000), (3, 16, 1001, 40000)]
 
 
-@pytest.mark.parametrize("C,D,ntaps,L", FUSED_GEOMS)
-def test_fused_chan_kernel_matches_plain(cuda_device, C, D, ntaps, L):
-    g2, ramp = _fused_tables(C, D, ntaps, L, cuda_device)
-    x = torch.randn((2, L + 5), device=cuda_device)[:, :L]     # a plane stride past L
+def _check_fused(C, D, ntaps, L, device):
+    g2, ramp, mix = _fused_tables(C, D, ntaps, L, device)
+    x = torch.randn((2, L + 5), device=device)[:, :L]     # a plane stride past L
     before = fused_channelize_kernel.launches
-    got = fused_channelize_kernel(x, g2, ramp, D, ntaps)
+    got = fused_channelize_kernel(x, g2, ramp, D, ntaps, mix)
     torch.cuda.synchronize()
     assert fused_channelize_kernel.launches == before + 1
     want = fused_channelize_planes(x, g2, ramp, D, ntaps, 1024)
@@ -442,9 +441,28 @@ def test_fused_chan_kernel_matches_plain(cuda_device, C, D, ntaps, L):
     assert float((got - want).abs().max()) <= bound
 
 
-@pytest.mark.parametrize("case", ["strided-rows", "g2-shape", "g2-on-cpu", "f64-ramp"])
+@pytest.mark.parametrize("C,D,ntaps,L", FUSED_GEOMS)
+def test_fused_chan_kernel_matches_plain(cuda_device, C, D, ntaps, L):
+    _check_fused(C, D, ntaps, L, cuda_device)
+
+
+def test_fused_chan_kernel_tap_limit(cuda_device):
+    """The kernel needs 256 + K - 1 <= tile (1024): K = 769 (49 passes of
+    16 tap rows, the last rows' ramp entries past the limit zero) runs,
+    K = 770 is refused by the launcher."""
+    _check_fused(2, 1, 769, 3000, cuda_device)
+    g2, ramp, mix = _fused_tables(2, 1, 770, 3000, cuda_device)
+    x = torch.zeros((2, 3000), device=cuda_device)
+    before = fused_channelize_kernel.launches
+    with pytest.raises(RuntimeError, match="fused_chan launch failed"):
+        fused_channelize_kernel(x, g2, ramp, 1, 770, mix)
+    assert fused_channelize_kernel.launches == before
+
+
+@pytest.mark.parametrize("case", ["strided-rows", "g2-shape", "g2-on-cpu", "f64-ramp",
+                                  "mix-shape", "mix-f64", "mix-on-cpu"])
 def test_fused_chan_kernel_refuses(cuda_device, case):
-    g2, ramp = _fused_tables(3, 8, 77, 20000, cuda_device)
+    g2, ramp, mix = _fused_tables(3, 8, 77, 20000, cuda_device)
     x = torch.zeros((2, 20000), device=cuda_device)
     if case == "strided-rows":
         x = torch.zeros((2, 40000), device=cuda_device)[:, ::2]
@@ -452,11 +470,17 @@ def test_fused_chan_kernel_refuses(cuda_device, case):
         g2 = g2[:, :-8]
     elif case == "g2-on-cpu":
         g2 = g2.cpu()
-    else:
+    elif case == "f64-ramp":
         ramp = (ramp[0].double(),) + ramp[1:]
+    elif case == "mix-shape":
+        mix = (mix[0][:-8], mix[1])
+    elif case == "mix-f64":
+        mix = (mix[0], mix[1].double())
+    else:
+        mix = (mix[0].cpu(), mix[1])
     before = fused_channelize_kernel.launches
     with pytest.raises((TypeError, ValueError)):
-        fused_channelize_kernel(x, g2, ramp, 8, 77)
+        fused_channelize_kernel(x, g2, ramp, 8, 77, mix)
     assert fused_channelize_kernel.launches == before
 
 

@@ -10,10 +10,16 @@ on the CPU.
   interpret mode (rtol = atol = 2e-4, as tests/test_plan_stream.py holds
   the Pallas kernel to the factored path), and past the Pallas kernel's
   geometry gate against JAX's factored path.
+- The CUDA kernel's tables (``fused_mix_tables``) against their float64
+  definition and JAX's mixer factors, and a torch mirror of the kernel's
+  factored arithmetic (blocks of 256 outputs, the block's ramp phasor,
+  the ramp's inner table, the phase table, the real taps) against JAX's
+  Pallas kernel in interpret mode (rtol = atol = 2e-4).
 - ``PlanGateway.run`` against JAX's on tests/test_plans.py's captures, on
-  the port's own tables and on JAX's taps, folded matrix and ramp: frames
-  equal field by field (snr rtol 1e-5, cfo atol 1 Hz); the fused and the
-  factored channelizer decode the same frames.
+  the port's own tables and on JAX's taps, folded matrix and ramp, and on
+  a short US915 capture (23 channels at 8 Msps): frames equal field by
+  field (snr rtol 1e-5, cfo atol 1 Hz); the fused and the factored
+  channelizer decode the same frames.
 """
 
 import numpy as np
@@ -47,8 +53,39 @@ def _t(a):
 
 def _plain_fused(xf, taps, offs, rate, D, tile=1024):
     """The plain fused channelizer with tables built on the host."""
-    g2, ramp = chan.fused_tables(offs, rate, taps, D, xf.shape[-1], "cpu", tile)
+    g2, ramp, _ = chan.fused_tables(offs, rate, taps, D, xf.shape[-1], "cpu", tile)
     return fused_channelize_planes(_t(xf), g2, ramp, D, len(taps), tile)
+
+
+def _mirror_factored(xf, taps, offs, rate, D, T=256, tile=1024):
+    """The CUDA kernel's factored arithmetic, in torch: for each block of
+    ``T`` outputs from ``n0`` on, ``y_c[n] = R_c[n0] * sum_{j, d} h[j*D +
+    d] * x[(n + j)*D + d] * rho_c[n - n0 + j] * phi_c[d]`` with ``R_c[n0]``
+    the output ramp at ``n0`` (outer times inner factor), ``rho`` the
+    ramp's inner table and ``(h, phi)`` from ``fused_tables``; float32
+    phasor products, mixed sample by mixed sample."""
+    _, (o_re, o_im, i_re, i_im), (h, phi) = chan.fused_tables(offs, rate, taps, D,
+                                                              xf.shape[-1], "cpu", tile)
+    K = h.numel() // D
+    L = xf.shape[-1]
+    n_out = (L - len(taps)) // D + 1
+    rows = T + K - 1
+    assert rows <= tile
+    nblk = -(-n_out // T)
+    xp = torch.nn.functional.pad(_t(xf), (0, (nblk * T + K - 1) * D - L))
+    x = torch.complex(xp[0], xp[1])
+    outer, inner = torch.complex(o_re, o_im), torch.complex(i_re, i_im)
+    ph = torch.complex(phi[:, 0], phi[:, 1])                       # [C, D]
+    hk = h.view(K, D)
+    blocks = []
+    for n0 in range(0, nblk * T, T):
+        R = outer[:, n0 // tile] * inner[:, n0 % tile]              # [C]
+        z = x[n0 * D:(n0 + rows) * D].view(rows, D)[None] \
+            * (inner[:, :rows, None] * ph[:, None, :])              # [C, rows, D]
+        y = sum((z[:, j:j + T] * hk[j]).sum(-1) for j in range(K))  # [C, T]
+        blocks.append(R[:, None] * y)
+    y = torch.cat(blocks, dim=1)[:, :n_out]
+    return torch.stack([y.real, y.imag], dim=1)
 
 
 # ----------------------------------------------------------- host builders
@@ -68,11 +105,64 @@ def test_host_builders_bit_equal(D, ntaps, C, L):
                     jchan.make_output_ramp_factors(offs, rate, D, nb, 1024)):
         assert a.dtype == b.dtype and np.array_equal(a, b)
     # the tables for a block of L samples, as the gateway and the kernel take them
-    g2, ramp = chan.fused_tables(offs, rate, taps, D, L, "cpu")
+    g2, ramp, (h, phi) = chan.fused_tables(offs, rate, taps, D, L, "cpu")
+    K = -(-ntaps // D)
     want = (jchan.make_fused_fir_matrix(offs, rate, taps, D),
-            *jchan.make_output_ramp_factors(offs, rate, D, nb, 1024))
-    for a, b in zip((g2, *ramp), want):
+            *jchan.make_output_ramp_factors(offs, rate, D, nb, 1024),
+            np.pad(taps, (0, K * D - ntaps)), jchan.make_mixer_factors(offs, rate, D, tile=D)[1])
+    for a, b in zip((g2, *ramp, h, phi), want):
         assert a.dtype == torch.float32 and np.array_equal(a.numpy(), b)
+
+
+@pytest.mark.parametrize("D,ntaps,C", [(8, 77, 7), (32, 309, 23), (1, 31, 2), (3, 20, 9)])
+def test_fused_mix_tables_float64_definition(D, ntaps, C):
+    """``h`` is the taps zero-padded to ``K*D``; ``phi[c, :, d]`` is
+    ``exp(-2j pi frac(a_c d))`` rounded once to float32."""
+    taps = np.random.default_rng(D).normal(0, 1, ntaps).astype(np.float32)
+    rate = D * 250e3
+    offs = np.linspace(-0.4 * rate, 0.4 * rate, C)
+    h, phi = chan.fused_mix_tables(offs, rate, taps, D)
+    K = -(-ntaps // D)
+    assert h.dtype == phi.dtype == np.float32
+    assert h.shape == (K * D,) and np.array_equal(h[:ntaps], taps) and not h[ntaps:].any()
+    a = offs / rate
+    want = np.exp(-2j * np.pi * ((a[:, None] * np.arange(D)) % 1.0))
+    assert phi.shape == (C, 2, D)
+    np.testing.assert_allclose(phi[:, 0], want.real, rtol=0, atol=2 ** -24)
+    np.testing.assert_allclose(phi[:, 1], want.imag, rtol=0, atol=2 ** -24)
+    # with the ramp's inner table, the mixer of sample (n0 + q)*D + d
+    n0, tile = 3 * 256, 1024
+    o_re, o_im, i_re, i_im = chan.make_output_ramp_factors(offs, rate, D, 4, tile)
+    q, d = np.meshgrid(np.arange(256 + K - 1), np.arange(D), indexing="ij")
+    got = ((o_re[:, 0] + 1j * o_im[:, 0]) * (i_re[:, n0] + 1j * i_im[:, n0]))[:, None, None] \
+        * (i_re[:, :256 + K - 1] + 1j * i_im[:, :256 + K - 1])[:, :, None] \
+        * (phi[:, 0] + 1j * phi[:, 1])[:, None, :]
+    s = (n0 + q) * D + d
+    np.testing.assert_allclose(got, np.exp(-2j * np.pi * ((a[:, None, None] * s) % 1.0)),
+                               rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("D,ntaps,C,L", [(8, 77, 7, 33000), (32, 309, 23, 45000),
+                                         (4, 19, 3, 4429), (8, 501, 3, 20000)],
+                         ids=["EU868", "US915", "ragged", "K-63"])
+def test_factored_mirror_matches_pallas_interpret(D, ntaps, C, L):
+    """The kernel's factored arithmetic against JAX's folded Pallas kernel:
+    the plan shapes with their own taps (US915 on a short block), a ragged
+    L and K = 63 (four passes of 16 tap rows in the kernel)."""
+    rate = D * 250e3
+    if ntaps in (77, 309):
+        taps = chan.firdes_low_pass(1.0, rate, 77.5e3, 62.5e3)
+        assert len(taps) == ntaps
+    else:
+        taps = np.random.default_rng(9).normal(0, 0.1, ntaps).astype(np.float32)
+    offs = np.linspace(-0.4 * rate, 0.4 * rate, C)
+    xf = jpack_iq(_iq(L, 10))
+    want = jchan.channelize_list_planes_fused(jnp.asarray(xf), taps, offs, rate, D, tile=1024,
+                                              interpret=True)
+    assert want is not None
+    got = _mirror_factored(xf, taps, offs, rate, D)
+    assert got.shape == (C, 2, (L - ntaps) // D + 1) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4, atol=2e-4)
 
 
 # ------------------------------------------------------- the factored path
@@ -151,15 +241,17 @@ def test_kernel_wrapper_on_cpu_is_the_plain_version():
     g2 = _t(chan.make_fused_fir_matrix(offs, 2e6, taps, D))
     n_out = (L - ntaps) // D + 1
     ramp = tuple(map(_t, chan.make_output_ramp_factors(offs, 2e6, D, -(-n_out // 256), 256)))
+    mix = tuple(map(_t, chan.fused_mix_tables(offs, 2e6, taps, D)))
     before = fused_channelize_kernel.launches
-    got = fused_channelize_kernel(xf, g2, ramp, D, ntaps)
+    got = fused_channelize_kernel(xf, g2, ramp, D, ntaps, mix)
     assert fused_channelize_kernel.launches == before
     assert torch.equal(got, fused_channelize_planes(xf, g2, ramp, D, ntaps, 256))
 
 
 @pytest.mark.parametrize("case", ["f64", "complex", "three-planes", "g2-width", "g2-odd-rows",
                                   "ramp-nb", "ramp-tile", "three-factors", "short-block",
-                                  "numpy-table"])
+                                  "numpy-table", "mix-h-length", "mix-phi-shape", "mix-f64",
+                                  "mix-one-table", "mix-numpy"])
 def test_kernel_wrapper_refuses(case):
     D, ntaps, C, L = 4, 19, 2, 4000
     xf = torch.zeros((2, L))
@@ -168,7 +260,18 @@ def test_kernel_wrapper_refuses(case):
     nb = -(-n_out // 128)
     ramp = [torch.zeros((C, nb)), torch.zeros((C, nb)), torch.zeros((C, 128)),
             torch.zeros((C, 128))]
-    if case == "f64":
+    mix = (torch.zeros(5 * D), torch.zeros((C, 2, D)))
+    if case == "mix-h-length":
+        mix = (torch.zeros(ntaps), mix[1])
+    elif case == "mix-phi-shape":
+        mix = (mix[0], torch.zeros((C, D)))
+    elif case == "mix-f64":
+        mix = (mix[0].double(), mix[1])
+    elif case == "mix-one-table":
+        mix = mix[:1]
+    elif case == "mix-numpy":
+        mix = (mix[0], mix[1].numpy())
+    elif case == "f64":
         xf = xf.double()
     elif case == "complex":
         xf = torch.zeros((2, L), dtype=torch.complex64)
@@ -190,7 +293,7 @@ def test_kernel_wrapper_refuses(case):
         g2 = g2.numpy()
     before = fused_channelize_kernel.launches
     with pytest.raises((TypeError, ValueError)):
-        fused_channelize_kernel(xf, g2, tuple(ramp), D, ntaps)
+        fused_channelize_kernel(xf, g2, tuple(ramp), D, ntaps, mix)
     assert fused_channelize_kernel.launches == before
 
 
@@ -261,6 +364,27 @@ def test_plan_gateway_run_matches_jax(case, tables):
     assert_frames_equal(got, want)
 
 
+def test_us915_plan_gateway_run_matches_jax():
+    """The US915 plan at 903.0 MHz, 8 Msps (23 channels in band, D = 32,
+    309 taps, the fused channelizer's plain version) against JAX's
+    gateway on a short capture with three SF7 packets, one with CFO and
+    noise."""
+    center, rate = 903.0e6, 8e6
+    sps7 = int(2 ** 7 * rate / 125e3)
+    placements = [(7, 902.5e6, b"\x11", 2 * sps7, 0.0, None),
+                  (7, 903.7e6, b"\x22\x23", 3 * sps7, 300.0, 12.0),
+                  (7, 906.1e6, b"\x33", 5 * sps7, 0.0, None)]
+    x = _capture(center, rate, placements, 44 * sps7, 12)
+    kw = dict(KW, sfs=(7,))
+    gw = PlanGateway("US915", center, rate, device="cpu", **kw)
+    assert len(gw.channels) == 23 and gw.decim == 32 and len(gw.taps) == 309 and gw.fused
+    got = gw.run(x)
+    decoded = {(f.tap_header.sf, f.tap_header.frequency): f.payload for f in got}
+    for sf, f_abs, payload, *_ in placements:
+        assert decoded[(sf, int(f_abs))][:len(payload)] == payload
+    assert_frames_equal(got, jplans.PlanGateway("US915", center, rate, **kw).run(x))
+
+
 def test_fused_and_factored_decode_the_same_frames():
     """tests/test_plan_stream.py:155-177: the fused channelizer against the
     factored one, end to end."""
@@ -296,6 +420,7 @@ def test_plan_gateway_options():
     assert len(gw.channels) == 23 and gw.decim == 32 and len(gw.taps) == 309
     assert gw.sfs == (8, 7) and gw.pool == 46 and gw.max_pkt_samples == gw.rxs[8].pkt_samples
     assert tuple(gw._g2.shape) == (46, 10 * 64) and gw._g2.device.type == "cpu"
+    assert [tuple(t.shape) for t in gw._mix] == [(320,), (23, 2, 32)]
     np.testing.assert_array_equal(gw.active, np.arange(23))
     assert gw.channel_freqs[0] == 902.3e6 + 0.2e6 * 0
     if not torch.cuda.is_available():
@@ -335,3 +460,6 @@ def test_load_plan_tables_refuses_wrong_shapes():
         load_plan_tables(gw, taps, g2, ramp=ramp)
     load_plan_tables(gw, taps, g2, ramp=ramp, length=L)
     assert list(gw._tables) == [("fused", L)]
+    # the kernel's tables follow the installed taps
+    load_plan_tables(gw, 2 * taps, g2)
+    assert torch.equal(gw._mix[0][:77], _t(2 * taps)) and not gw._mix[0][77:].any()
