@@ -13,7 +13,10 @@ Phases, each of which passes or exits non-zero:
    bfloat16, at the main paths' shapes and at ragged and odd geometries
    (the polyphase FIR bit-equal, in its vector and scalar
    instantiations, the gateway's shape included; the multi-lag kernel
-   also at both plan gateways' planes; the fused plan channelizer,
+   also at both plan gateways' planes and on pitched views as the
+   channelizer leaves them, through its 16-byte and scalar copies, sps =
+   4096 in column chunks and lags past its ring, each launched twice,
+   bit-identical; the fused plan channelizer,
    float32 only, at both plan shapes, a ragged L, C = 1, D = 2, D = 1
    and past the TPU kernel's gate); the detection
    metric's staged "tile" kernel and its window-major kernel at the same
@@ -47,8 +50,9 @@ Phases, each of which passes or exits non-zero:
    single synchronised calls, the host's enqueue time, the host
    synchronisations in a call and the allocator's device allocations;
 9. where one call's device time goes (torch.profiler), and the device's
-   idle share, by layer for the wideband, gateway and US915 plan calls;
-   then phase 8 again, after the profiler;
+   idle share, by layer for the wideband, gateway and US915 plan calls
+   (the gateway's channel planes reach K3 and every SF's Phase B
+   uncopied); then phase 8 again, after the profiler;
 10. the kernel studies at their defaults (``lora_tpu_torch.tools``:
    ``profile_detect``, "pp" against "tile"; ``profile_packing``,
    plane-major against window-major), each launching its kernels once a
@@ -60,7 +64,9 @@ Phases, each of which passes or exits non-zero:
 11. each kernel's time beside its bound, its plain version's time and a
    library call's time where one computes the same function (the
    polyphase FIR at the wideband shape, float32 and bf16 out, and at the
-   gateway's; the gateway's numbers also go into its ``kernels`` entry).
+   gateway's; the gateway's numbers also go into its ``kernels`` entry;
+   the multi-lag kernel on the gateway's pitched view and at the US915
+   plan's planes, whose numbers go into its entry's ``plan`` object).
 
 The line before the last is the ``kernels`` JSON line; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -300,8 +306,31 @@ def lag_rows_errors(got, ref, lags):
     return err_abs, err_e, err_q
 
 
+def lag_bound(shape, itemsize: int, sps: int, lags):
+    """``(bound ms, bytes ms, ops ms, "bytes" | "operations")`` of K3 over
+    planes of ``shape`` ``[C, 2, L]``: the planes read once and the rows
+    written once; 4 float32 flops a complex sample for the energy and 8
+    for each lag's product where the partner row exists."""
+    C, _, L = shape
+    R = L // sps
+    t_bytes = (C * 2 * L * itemsize + C * (1 + 2 * len(lags)) * R * 4) / HBM_BYTES_PER_S * 1e3
+    t_ops = (4 * C * R * sps + sum(8 * C * max(R - m, 0) * sps for m in lags)) \
+        / F32_FLOPS_PER_S * 1e3
+    return max(t_bytes, t_ops), t_bytes, t_ops, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def lag_copies(xf, sps: int, lags) -> str:
+    """Which instantiation of K3 the wrapper launches on ``xf``."""
+    from lora_tpu_torch.ops.cuda_kernels import _lag_vector_width
+
+    width = _lag_vector_width(xf, sps)
+    return (f"{'16-byte' if width > 1 else 'scalar'} copies"
+            + (", partners past the ring from memory" if max(lags) > 32 else ""))
+
+
 def phase_lag_vs_plain() -> float:
-    """K3 against its plain version on the card, float32 and bf16. Returns
+    """K3 against its plain version on the card, float32 and bf16, on
+    contiguous and pitched planes, through both instantiations. Returns
     the largest absolute error of any output."""
     import torch
 
@@ -309,26 +338,39 @@ def phase_lag_vs_plain() -> float:
     from lora_tpu_torch.rx.frontend import detection_metrics_planes, metrics_from_lag_rows
 
     gen = torch.Generator(device="cuda").manual_seed(777)
-    # (C, sps_min, rows, tail samples, lags): the gateway's planes and the
-    # US915 and EU868 plan gateways' (23 and 7 channels); SF7-12 at 1 Msps
-    # with a ragged row count; a lag set that is not powers of two; sps off
-    # the 128 grid (100, 1000); lags at and past R; one run of rows, and one
-    # ragged past a run; lags past the staged halo (read from memory);
-    # twelve lags (two register chunks)
-    geoms = [(256, 256, 1759, 247, GATEWAY_LAGS), (23, 256, 1759, 247, GATEWAY_LAGS),
-             (7, 256, 1759, 247, GATEWAY_LAGS), (3, 128, 37 * 32 + 5, 17, GATEWAY_LAGS),
-             (3, 128, 111, 17, (1, 3)), (2, 100, 300, 0, (1, 2, 4)),
-             (2, 1000, 50, 7, (1, 2, 4, 8)), (2, 256, 20, 0, (1, 2, 20, 64)),
-             (1, 128, 20, 0, GATEWAY_LAGS), (1, 128, 40, 0, GATEWAY_LAGS),
-             (2, 128, 150, 5, (1, 5, 70, 100)), (2, 64, 50, 0, tuple(range(1, 13)))]
+    # (C, sps_min, rows, tail samples, lags, plane pitch past L): the
+    # gateway's planes as the channelizer's view gives them (pitch 450,552)
+    # and as a contiguous copy, and the US915 and EU868 plan gateways' (23
+    # and 7 channels); SF7-12 at 1 Msps with a ragged row count, contiguous
+    # and with a pitch off the 16-byte grid; a lag set that is not powers
+    # of two; sps off the 128 grid (100, 1000); lags at and past R; one run
+    # of rows, and one ragged past a run; lags past the staged rows (read
+    # from memory), contiguous and pitched; twelve lags (two groups); sps =
+    # 4096 (16 column chunks), pitched and contiguous
+    geoms = [(256, 256, 1759, 247, GATEWAY_LAGS, 1), (256, 256, 1759, 247, GATEWAY_LAGS, 0),
+             (23, 256, 1759, 247, GATEWAY_LAGS, 0), (7, 256, 1759, 247, GATEWAY_LAGS, 0),
+             (3, 128, 37 * 32 + 5, 17, GATEWAY_LAGS, 0),
+             (3, 128, 37 * 32 + 5, 17, GATEWAY_LAGS, 3),
+             (3, 128, 111, 17, (1, 3), 0), (2, 100, 300, 0, (1, 2, 4), 0),
+             (2, 1000, 50, 7, (1, 2, 4, 8), 0), (2, 256, 20, 0, (1, 2, 20, 64), 0),
+             (1, 128, 20, 0, GATEWAY_LAGS, 0), (1, 128, 40, 0, GATEWAY_LAGS, 0),
+             (2, 128, 150, 5, (1, 5, 70, 100), 0), (2, 128, 150, 0, (1, 5, 70, 100), 8),
+             (2, 64, 50, 0, tuple(range(1, 13)), 0), (2, 4096, 40, 0, (1, 2, 4), 8),
+             (2, 4096, 40, 5, (1, 2, 4), 0)]
     worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
-        for C, sps, rows, tail, lags in geoms:
-            xf = torch.randn((C, 2, rows * sps + tail), generator=gen, device="cuda").to(dtype)
+        for C, sps, rows, tail, lags, pad in geoms:
+            n = rows * sps + tail
+            xf = torch.randn((C, 2, n + pad), generator=gen, device="cuda").to(dtype)[..., :n]
             before = lag_rows_kernel.launches
             got = lag_rows_kernel(xf, sps, lags)
             torch.cuda.synchronize()
             check(lag_rows_kernel.launches == before + 1, "the lag_rows launch count did not rise")
+            again = lag_rows_kernel(xf, sps, lags)
+            check(torch.equal(got[0], again[0])
+                  and all(torch.equal(a, b) for m in lags for a, b in zip(got[1][m], again[1][m])),
+                  "lag_rows: two launches on the same input differ")
+            del again
             ref = lag_rows_planes(xf, sps, lags)
             outs = [got[0]] + [q for lag in lags for q in got[1][lag]]
             for g in outs:
@@ -336,9 +378,10 @@ def phase_lag_vs_plain() -> float:
                       f"lag_rows: {tuple(g.shape)} {g.dtype}, expected {(C, rows)} float32")
                 check(bool(torch.isfinite(g).all()), "lag_rows: non-finite output")
             err_abs, err_e, err_q = lag_rows_errors(got, ref, lags)
-            label = f"lag_rows {str(dtype)[6:]} C={C} sps={sps} R={rows} tail={tail} lags={lags}"
+            label = (f"lag_rows {str(dtype)[6:]} C={C} sps={sps} R={rows} tail={tail} "
+                     f"lags={lags} plane stride {xf.stride(1)} ({lag_copies(xf, sps, lags)})")
             msg = (f"{label}: max abs err {err_abs:.3g}, energy max rel err {err_e:.3g}, "
-                   f"lag product max err / sqrt(e e) {err_q:.3g}")
+                   f"lag product max err / sqrt(e e) {err_q:.3g}, a second launch bit-identical")
             if rows == 1759:   # the gateways: each SF's metrics from the rows, against K1's plain version
                 err_c = 0.0
                 for m in lags:
@@ -1339,11 +1382,50 @@ def phase_profile_wideband(receivers, xd):
               f"Phase B + decode tail {busy - pfb - k1:.3f} ms, of {busy:.3f} ms busy")
 
 
+def gateway_planes_seen(gw, xd) -> list:
+    """One ``process()`` call with K3's wrapper and every SF's pooled stage
+    wrapped to record the channel planes each is handed: ``[(who, plane
+    stride, contiguous)]``."""
+    from lora_tpu_torch.ops import cuda_kernels as ck
+
+    seen, k3 = [], ck.lag_rows_kernel
+
+    def spy_k3(xf, *a, **kw):
+        seen.append(("K3", xf.stride(-2), xf.is_contiguous()))
+        return k3(xf, *a, **kw)
+
+    def spy_stage(sf, stage):
+        def fn(xf, *a, **kw):
+            seen.append((f"SF{sf} Phase B", xf.stride(-2), xf.is_contiguous()))
+            return stage(xf, *a, **kw)
+        return fn
+
+    spy_k3.launches = 0   # the wrapper counts on whatever its module's name holds
+    ck.lag_rows_kernel = spy_k3
+    for sf, rx in gw.rxs.items():
+        rx.process_pooled_planes = spy_stage(sf, rx.process_pooled_planes)
+    try:
+        gw.process(xd)
+    finally:
+        ck.lag_rows_kernel = k3
+        for rx in gw.rxs.values():
+            del rx.process_pooled_planes
+    return seen
+
+
 def phase_profile_gateway(gw, xd):
     """The gateway call's device time in the layers of the path: K4, the
     DFT GEMM and the rest of the channelizer (the channelizer profiled
-    alone), K3, and the rest (the planes' one copy, the per-SF metrics,
-    candidates, Phase B of six SFs, decode tails)."""
+    alone), the planes' copy (none: K3 and every SF's Phase B read the
+    channelizer's pitched view, checked by wrapping them), K3, and the
+    rest (the per-SF metrics, candidates, Phase B of six SFs, decode
+    tails)."""
+    seen = gateway_planes_seen(gw, xd)
+    view = gw._channel_planes(xd)
+    check(len(seen) == 1 + len(gw.rxs)
+          and all(st == view.stride(-2) and not cont for _, st, cont in seen),
+          f"gateway: the channel planes were copied before K3 or Phase B: {seen}")
+    del view
     [(rows, busy)] = phase_profile("gateway", gateway_calls(gw, xd))
     _, prow, _ = device_rows(lambda: gw.pfb.planes(xd, out_dtype=gw.plane_dtype))
     k4 = sum(ms for k, ms, _ in rows if "pfb_fir" in k)
@@ -1352,10 +1434,10 @@ def phase_profile_gateway(gw, xd):
     pfb = sum(ms for _, ms, _ in prow)
     fft = sum(ms for k, ms, _ in rows if "fft" in k.lower())
     print(f"profile gateway bfloat16 by layer: K4 {k4:.3f} ms, DFT GEMM {dft:.3f} ms, rest of "
-          f"the channelizer {pfb - k4 - dft:.3f} ms, K3 {k3:.3f} ms, planes' copy + per-SF "
-          f"metrics + candidates + Phase B + decode tails {busy - pfb - k3:.3f} ms (of which FFT "
-          f"kernels "
-          f"{fft:.3f} ms), of {busy:.3f} ms busy")
+          f"the channelizer {pfb - k4 - dft:.3f} ms, planes' copy none (K3 and the six Phase B "
+          f"stages read the channelizer's view, plane stride {seen[0][1]}), K3 {k3:.3f} ms, "
+          f"per-SF metrics + candidates + Phase B + decode tails {busy - pfb - k3:.3f} ms (of "
+          f"which FFT kernels {fft:.3f} ms), of {busy:.3f} ms busy")
 
 
 def phase_profile_plan(gw, xd):
@@ -1565,30 +1647,46 @@ def phase_kernel_times(rx, planes, launches, worst_err, receivers, xd_wide,
                         f"launches per process() {wide_launches[dtype]['pfb_fir']}")
     fir_gw = pfb_times(xd_gw, gw.pfb._h, gw.plane_dtype)
     print_pfb_times(f"gateway-{gw.M}", fir_gw, f"launches per process() {gw_launches['pfb_fir']}")
-    # K3 at the gateway's shape: the bf16 channel planes, rows of one SF7
-    # symbol, every SF's lag
-    cp = gw.pfb.planes(xd_gw, out_dtype=gw.plane_dtype).contiguous()
-    C, _, L = cp.shape
+    # K3 at the gateway's shape (the bf16 channel planes as the receiver
+    # hands them over: the channelizer's pitched view) and at the US915
+    # plan gateway's (its contiguous float32 planes); rows of one SF7
+    # symbol, every SF's lag. Timed through the C entry into a
+    # preallocated output: the wrapper's own host work a call outlasts
+    # the kernel at the plan shape, so back-to-back wrapper calls would
+    # time the host
+    from lora_tpu_torch.ops.cuda_kernels import _lag_lib, lag_rows_launch
+
+    lag = {}
     sps = min(r.sps for r in gw.rxs.values())
-    R = L // sps
-    # bytes: planes read once, the rows written once; operations: 4 flops a
-    # complex sample for the energy, 8 for each lag's product where the
-    # partner row exists
-    t_bytes = (C * 2 * L * cp.element_size() + C * (1 + 2 * len(GATEWAY_LAGS)) * R * 4) \
-        / HBM_BYTES_PER_S * 1e3
-    t_ops = (4 * C * R * sps + sum(8 * C * max(R - m, 0) * sps for m in GATEWAY_LAGS)) \
-        / F32_FLOPS_PER_S * 1e3
-    lag = dict(ms=cuda_ms(lambda: lag_rows_kernel(cp, sps, GATEWAY_LAGS), 20),
-               plain_ms=cuda_ms(lambda: lag_rows_planes(cp, sps, GATEWAY_LAGS), 3),
-               bound_ms=max(t_bytes, t_ops),
-               bound_by="bytes" if t_bytes >= t_ops else "operations")
-    six_k1 = cuda_ms(lambda: [detection_metrics_kernel(cp, m * sps) for m in GATEWAY_LAGS], 10)
-    print(f"lag_rows bfloat16 at {list(cp.shape)} sps={sps} lags={GATEWAY_LAGS}: kernel "
-          f"{lag['ms']:.4f} ms, plain {lag['plain_ms']:.4f} ms, bound {lag['bound_ms']:.4f} ms "
-          f"(bytes {t_bytes:.4f}, ops {t_ops:.4f}), launches per process() "
-          f"{gw_launches['lag_rows']}; the six per-SF det_metrics launches it replaces "
-          f"{six_k1:.4f} ms")
-    del cp
+    pgw, pxd, plaunches = plans["US915"]
+    for where, cp, n_launch in (("gateway", gw._channel_planes(xd_gw), gw_launches),
+                                ("plan", pgw.channel_planes(pxd), plaunches)):
+        bound, t_bytes, t_ops, by = lag_bound(cp.shape, cp.element_size(), sps, GATEWAY_LAGS)
+        rows = torch.empty((cp.shape[0], 1 + 2 * len(GATEWAY_LAGS), cp.shape[-1] // sps),
+                           device=cp.device)
+        lag[where] = dict(ms=cuda_ms(lambda: lag_rows_launch(_lag_lib(), cp, sps, GATEWAY_LAGS,
+                                                             rows), 20),
+                          plain_ms=cuda_ms(lambda: lag_rows_planes(cp, sps, GATEWAY_LAGS), 3),
+                          bound_ms=bound, bound_by=by, library_ms=None,
+                          launches=n_launch["lag_rows"])
+        st = lag[where]
+        print(f"lag_rows {where} {str(cp.dtype)[6:]} at {list(cp.shape)} plane stride "
+              f"{cp.stride(1)} ({lag_copies(cp, sps, GATEWAY_LAGS)}) sps={sps} "
+              f"lags={GATEWAY_LAGS}: kernel {st['ms']:.4f} ms ({100 * bound / st['ms']:.1f} % "
+              f"of the bound), through the wrapper "
+              f"{cuda_ms(lambda: lag_rows_kernel(cp, sps, GATEWAY_LAGS), 20):.4f} ms, plain "
+              f"{st['plain_ms']:.4f} ms, bound {bound:.4f} ms (bytes {t_bytes:.4f}, ops "
+              f"{t_ops:.4f}), launches per process() {st['launches']}")
+        if where == "gateway":
+            cc = cp.contiguous()
+            six_k1 = cuda_ms(lambda: [detection_metrics_kernel(cc, m * sps)
+                                      for m in GATEWAY_LAGS], 10)
+            on_copy = cuda_ms(lambda: lag_rows_launch(_lag_lib(), cc, sps, GATEWAY_LAGS, rows), 20)
+            print(f"  on the planes' contiguous copy (the scalar instantiation) {on_copy:.4f} "
+                  f"ms; the copy itself {cuda_ms(lambda: cp.contiguous(), 20):.4f} ms; the six "
+                  f"per-SF det_metrics launches K3 replaces (on the copy) {six_k1:.4f} ms")
+            del cc
+        del cp, rows
     # K5 at both plan shapes: the gateway's own tables for its capture
     from lora_tpu_torch.device import full_f32_matmul
     from lora_tpu_torch.ops.cuda_kernels import fused_channelize_kernel, fused_channelize_planes
@@ -1663,11 +1761,12 @@ def phase_kernel_times(rx, planes, launches, worst_err, receivers, xd_wide,
         "replaces": "lora_tpu/ops/pallas_kernels.py:149",
         "launches": gw_launches["lag_rows"],
         "max_abs_err": worst_lag,
-        "ms": lag["ms"],
-        "plain_ms": lag["plain_ms"],
-        "bound_ms": lag["bound_ms"],
-        "bound_by": lag["bound_by"],
+        "ms": lag["gateway"]["ms"],
+        "plain_ms": lag["gateway"]["plain_ms"],
+        "bound_ms": lag["gateway"]["bound_ms"],
+        "bound_by": lag["gateway"]["bound_by"],
         "library_ms": None,
+        "plan": lag["plan"],
     }, {
         "name": "fused_chan",
         "route": "cuda",

@@ -328,19 +328,54 @@ def pfb_fir_kernel(xf: torch.Tensor, h_poly: torch.Tensor,
 pfb_fir_kernel.launches = 0
 
 
+def bind_lag_lib(lib):
+    """Declare the C entry points of a library built from
+    ``csrc/lag_rows.cu`` (the port's, or a tuning variant's); returns
+    ``lib``."""
+    return _bind(lib, "lag_rows",
+                 [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 5
+                 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+
+
 @functools.cache
 def _lag_lib():
     from ._build import load
 
-    return _bind(load("lag_rows"), "lag_rows",
-                 [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 3
-                 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    return bind_lag_lib(load("lag_rows"))
 
 
 @functools.cache
 def _lag_table(lags: tuple, device: torch.device) -> torch.Tensor:
     """The lags as an int32 tensor on ``device``, copied there once."""
     return torch.tensor(lags, dtype=torch.int32, device=device)
+
+
+def _lag_vector_width(x3: torch.Tensor, sps: int) -> int:
+    """Samples a copy of the multi-lag kernel moves for planes ``x3 [C, 2,
+    L]``: 16 bytes' worth (4 float32 or 8 bf16) when every row's chunks of
+    16 bytes are aligned (the planes' base, their plane and channel
+    strides and ``sps``), else 1, the kernel's scalar instantiation."""
+    size = x3.element_size()
+    v = 16 // size
+    if (x3.data_ptr() % 16 or x3.stride(1) % v or (x3.shape[0] > 1 and x3.stride(0) % v)
+            or sps % v):
+        return 1
+    return v
+
+
+def lag_rows_launch(lib, x3, sps: int, lags: tuple, out) -> None:
+    """Launch ``lib``'s multi-lag kernel on checked CUDA planes ``x3 [C, 2,
+    L]`` (each plane's samples contiguous) into ``out [C, 1 + 2 *
+    len(lags), L // sps]``, at the width :func:`_lag_vector_width` picks,
+    on the planes' device and its current stream; raises ``RuntimeError``
+    when the launch fails."""
+    C, _, L = x3.shape
+    with torch.cuda.device(x3.device):  # the C entry launches on the current device
+        rc = lib.lag_rows_launch(
+            x3.data_ptr(), _lag_table(lags, x3.device).data_ptr(), out.data_ptr(), C, L, sps,
+            x3.stride(1), x3.stride(0), len(lags), lags[-1], _DTYPE_CODE[x3.dtype],
+            _lag_vector_width(x3, sps), torch.cuda.current_stream().cuda_stream)
+    _check_rc(lib, "lag_rows", rc)
 
 
 def lag_rows_kernel(xf: torch.Tensor, sps_min: int, lags):
@@ -350,8 +385,13 @@ def lag_rows_kernel(xf: torch.Tensor, sps_min: int, lags):
     computes them (``q`` zero for rows ``r >= R - lag``).
 
     CPU tensor: the plain version. CUDA tensor: the kernel, one launch for
-    every lag; the planes must be contiguous. Raises on any other dtype,
-    layout or device, on a lag below 1, and when the block holds no row.
+    every lag, which reads the planes where they lie: each plane's samples
+    contiguous, any plane and channel stride (the channelizer's pitched
+    view needs no copy; leading dimensions that do not merge into one
+    channel stride are copied first). It copies 16 bytes at a time where
+    :func:`_lag_vector_width` finds the planes aligned for it, else one
+    sample. Raises on any other dtype, layout or device, on a lag below 1,
+    and when the block holds no row.
     """
     if not isinstance(xf, torch.Tensor):
         raise TypeError("lag_rows_kernel takes a torch tensor")
@@ -368,20 +408,14 @@ def lag_rows_kernel(xf: torch.Tensor, sps_min: int, lags):
         return lag_rows_planes(xf, sps_min, lags)
     if xf.device.type != "cuda":
         raise ValueError(f"no lag-rows kernel for device {xf.device}")
-    if not xf.is_contiguous():
-        raise ValueError("the lag-rows kernel reads contiguous planes")
+    if xf.stride(-1) != 1:
+        raise ValueError("the lag-rows kernel reads planes whose samples are contiguous")
     lead = xf.shape[:-2]
     C = math.prod(lead)
     R = L // sps_min
     S = 1 + 2 * len(lags)
     out = torch.empty((C, S, R), dtype=torch.float32, device=xf.device)
-    lib = _lag_lib()
-    with torch.cuda.device(xf.device):  # the C entry launches on the current device
-        rc = lib.lag_rows_launch(
-            xf.data_ptr(), _lag_table(lags, xf.device).data_ptr(), out.data_ptr(),
-            C, L, sps_min, len(lags), lags[-1], _DTYPE_CODE[xf.dtype],
-            torch.cuda.current_stream().cuda_stream)
-    _check_rc(lib, "lag_rows", rc)
+    lag_rows_launch(_lag_lib(), xf.reshape(C, 2, L), sps_min, lags, out)
     lag_rows_kernel.launches += 1
     out = out.reshape(lead + (S, R))
     return out[..., 0, :], {lag: (out[..., 1 + 2 * s, :], out[..., 2 + 2 * s, :])

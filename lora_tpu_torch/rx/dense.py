@@ -24,14 +24,16 @@ Demod engines (``demod_method``):
 - ``auto`` (default): ``gradient`` at decimation >= 4 with explicit
   headers, ``fft`` otherwise, as JAX resolves it.
 
-Optional header-checksum verification. Not ported yet, and refused with
-``NotImplementedError``: implicit headers, ``low_snr`` and
-``debug_trace``.
+Header-checksum verification (``header_checksum``) is ported, as in JAX.
+Not ported yet, and refused with ``NotImplementedError``: implicit
+headers, ``low_snr`` and ``debug_trace``.
 
 :meth:`DenseReceiver.process_pooled_planes` is the many-channel form: the
 strongest candidates of all channels share one global pool of lanes. It
 takes precomputed detection metrics, which the multi-SF gateway derives
-for every SF from one shared pass over the channel planes.
+for every SF from one shared pass over the channel planes; with them it
+reads the planes where they lie, the channelizer's pitched view
+included.
 """
 
 from __future__ import annotations
@@ -547,14 +549,17 @@ class DenseReceiver:
         on every channel, then Phase B on the strongest ``pool`` valid
         (channel, window) candidates across all channels. ``metrics``:
         optional precomputed ``(corr, e1, e2)`` ``[C, K]`` of this SF's
-        window grid, in place of Phase A."""
+        window grid, in place of Phase A. Given metrics, the planes are
+        read where they lie (any strides: Phase B gathers its windows from
+        a view); without, Phase A's detection kernel reads a contiguous
+        copy."""
         if xf.ndim != 3 or xf.shape[1] != 2:
             raise ValueError(f"expected channel planes [C, 2, L], got {tuple(xf.shape)}")
         sps = self.sps
         L = xf.shape[-1]
-        xf = xf.contiguous()
         with full_f32_matmul():
             if metrics is None:
+                xf = xf.contiguous()
                 metrics = self._metrics_planes(xf)
             corr, e1, _ = metrics
             chan, win, lane_valid, snr, n_dropped = self._pool_lanes(

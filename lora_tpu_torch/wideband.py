@@ -206,13 +206,17 @@ class MultiSFWidebandReceiver(_Channelized):
 
     def process_planes(self, xf: torch.Tensor) -> Dict[int, object]:
         """Packed wideband planes ``[2, L]`` on the receiver's device ->
-        ``{sf: PooledResult [pool]}``. The channel planes are made
-        contiguous once here and shared by the detection and every SF."""
-        cp = self._channel_planes(xf).contiguous()
+        ``{sf: PooledResult [pool]}``. With ``shared_detection`` the
+        multi-lag detection and every SF's Phase B read the channelizer's
+        planes where they lie (a view with a padded row pitch): no copy.
+        The per-SF detection reads contiguous planes, so that path copies
+        them once for all SFs."""
+        cp = self._channel_planes(xf)
         if self.shared_detection:
             metrics = multi_sf_detection_metrics(
                 cp, {sf: rx.sps for sf, rx in self.rxs.items()})
         else:
+            cp = cp.contiguous()
             metrics = dict.fromkeys(self.sfs)
         return {sf: rx.process_pooled_planes(cp, self.pool, metrics=metrics[sf])
                 for sf, rx in self.rxs.items()}

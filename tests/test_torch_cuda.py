@@ -33,7 +33,7 @@ from lora_tpu_torch.ops.cuda_kernels import (detection_metrics_kernel,
                                              fused_channelize_kernel,
                                              fused_channelize_planes,
                                              lag_rows_kernel, lag_rows_planes,
-                                             _pfb_vector_width, pfb_fir_kernel,
+                                             _lag_vector_width, _pfb_vector_width, pfb_fir_kernel,
                                              pfb_fir_planes)
 from lora_tpu_torch.ops.xfer import pack_iq
 from lora_tpu_torch.tx.modulator import modulate_frame
@@ -347,6 +347,44 @@ def test_lag_rows_kernel_matches_plain(cuda_device, C, sps, rows, tail, lags, dt
             assert bool(((g - w).abs() <= 1e-5 * scale).all())
 
 
+# C, sps_min, rows, tail, lags, pitch past L, 16-byte copies: the
+# gateway's view as the channelizer leaves it (pitch L + 1), a pitch off
+# the 16-byte grid, sps = 4096 (column chunks) pitched and contiguous,
+# lags past the staged rows on a pitched view, one row
+PITCHED_LAG_GEOMS = [(4, 256, 1759, 247, (1, 2, 4, 8, 16, 32), 1, True),
+                     (3, 128, 300, 17, (1, 2, 4, 8, 16, 32), 2, False),
+                     (2, 4096, 20, 0, (1, 2, 4), 8, True), (2, 4096, 20, 5, (1, 2, 4), 0, False),
+                     (2, 128, 150, 0, (1, 5, 70, 100), 8, True), (3, 256, 1, 0, (1,), 8, True)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,sps,rows,tail,lags,pad,vector", PITCHED_LAG_GEOMS)
+def test_lag_rows_kernel_reads_pitched_planes(cuda_device, C, sps, rows, tail, lags, pad,
+                                              vector, dtype):
+    """A view of a longer buffer is read where it lies, through 16-byte
+    copies where its pitch allows them, else scalar ones; two launches give
+    bit-identical rows."""
+    n = rows * sps + tail
+    rng = np.random.default_rng(C + sps + rows + pad)
+    buf = torch.from_numpy(rng.normal(size=(C, 2, n + pad)).astype(np.float32))
+    x = buf.to(cuda_device).to(dtype)[..., :n]
+    want_width = 16 // x.element_size() if vector else 1
+    assert _lag_vector_width(x, sps) == want_width
+    before = lag_rows_kernel.launches
+    e, qs = lag_rows_kernel(x, sps, lags)
+    again = lag_rows_kernel(x, sps, lags)
+    torch.cuda.synchronize()
+    assert lag_rows_kernel.launches == before + 2
+    assert torch.equal(e, again[0])
+    e_w, qs_w = lag_rows_planes(x, sps, lags)
+    torch.testing.assert_close(e, e_w, rtol=1e-5, atol=0)
+    for lag in lags:
+        scale = torch.sqrt(e_w * torch.nn.functional.pad(e_w, (0, lag))[:, lag:lag + rows])
+        for g, g2, w in zip(qs[lag], again[1][lag], qs_w[lag]):
+            assert torch.equal(g, g2)
+            assert bool(((g - w).abs() <= 1e-5 * scale).all())
+
+
 def test_lag_rows_kernel_single_stream(cuda_device):
     x = torch.randn((2, 30 * 256 + 9), device=cuda_device)
     e, qs = lag_rows_kernel(x, 256, (2, 1))
@@ -373,9 +411,12 @@ def test_lag_rows_kernel_refuses(cuda_device, case):
     assert lag_rows_kernel.launches == before
 
 
-@pytest.mark.parametrize("shared", [True, False])
-def test_gateway_on_card_matches_cpu(cuda_device, shared):
-    """tests/test_multi_sf.py:42-69's capture: SF7-9 on 8 channels."""
+GATEWAY_PLACEMENTS = [(7, 2), (8, 5), (9, 6)]
+
+
+def _gateway_pair(cuda_device, shared):
+    """tests/test_multi_sf.py:42-69's capture, SF7-9 on 8 channels, and
+    the gateway on the card and on the CPU."""
     M = 8
     cfg = LoRaConfig(sf=7, cr=1, samp_rate=250e3, crc=True)
     wide_rate = M * cfg.samp_rate
@@ -387,23 +428,18 @@ def test_gateway_on_card_matches_cpu(cuda_device, shared):
     L = (32 * 1024 + 2 * cpu.max_pkt_samples) * M
     rng = np.random.default_rng(7)
     x = 1e-4 * (rng.normal(size=(L, 2)) @ [1, 1j])
-    placements = [(7, 2), (8, 5), (9, 6)]
-    for sf, c in placements:
+    for sf, c in GATEWAY_PLACEMENTS:
         wcfg = LoRaConfig(sf=sf, cr=1, samp_rate=wide_rate, crc=True)
         pkt = modulate_frame(wcfg, bytes([sf, c]), snr_db=None)
         pos = 2 * wcfg.samples_per_symbol
         t = np.arange(pos, pos + len(pkt))
         x[pos:pos + len(pkt)] += pkt * np.exp(2j * np.pi * freqs[c] / wide_rate * t)
-    x = x.astype(np.complex64)
-    before = (pfb_fir_kernel.launches, lag_rows_kernel.launches,
-              detection_metrics_kernel.launches)
-    got = gpu.run(x)
-    assert (pfb_fir_kernel.launches, lag_rows_kernel.launches,
-            detection_metrics_kernel.launches) == \
-        (before[0] + 1, before[1] + shared, before[2] + 3 * (not shared))
-    want = cpu.run(x)
+    return x.astype(np.complex64), gpu, cpu
+
+
+def _frames_equal(got, want):
     assert [(f.tap_header.sf, f.channel, f.payload[:2]) for f in want] == \
-        [(sf, c, bytes([sf, c])) for sf, c in placements]
+        [(sf, c, bytes([sf, c])) for sf, c in GATEWAY_PLACEMENTS]
     assert len(got) == len(want)
     for g, w in zip(got, want):
         assert (g.channel, g.sample_index, g.phy_header.to_bytes(), g.payload,
@@ -412,6 +448,41 @@ def test_gateway_on_card_matches_cpu(cuda_device, shared):
              w.tap_header.frequency, w.tap_header.sf)
         assert g.snr == pytest.approx(w.snr, rel=1e-4)
         assert g.cfo == pytest.approx(w.cfo, abs=1.0)
+
+
+def test_gateway_hands_k3_the_channelizer_view(cuda_device, monkeypatch):
+    """With shared detection the multi-lag kernel receives the
+    channelizer's pitched view, not a copy, and the frames equal the
+    CPU's."""
+    from lora_tpu_torch.ops import cuda_kernels
+
+    x, gpu, cpu = _gateway_pair(cuda_device, True)
+    seen, k3 = [], cuda_kernels.lag_rows_kernel
+
+    def spy(planes, *a):
+        seen.append((planes.is_contiguous(), planes.stride(), tuple(planes.shape)))
+        return k3(planes, *a)
+
+    spy.launches = 0   # the wrapper counts on whatever its module's name holds
+    monkeypatch.setattr(cuda_kernels, "lag_rows_kernel", spy)
+    got = gpu.run(x)
+    assert len(seen) == 1
+    contiguous, stride, shape = seen[0]
+    assert not contiguous and stride[-2] > shape[-1] and stride[-2] % 8 == 0
+    _frames_equal(got, cpu.run(x))
+
+
+@pytest.mark.parametrize("shared", [True, False])
+def test_gateway_on_card_matches_cpu(cuda_device, shared):
+    """tests/test_multi_sf.py:42-69's capture: SF7-9 on 8 channels."""
+    x, gpu, cpu = _gateway_pair(cuda_device, shared)
+    before = (pfb_fir_kernel.launches, lag_rows_kernel.launches,
+              detection_metrics_kernel.launches)
+    got = gpu.run(x)
+    assert (pfb_fir_kernel.launches, lag_rows_kernel.launches,
+            detection_metrics_kernel.launches) == \
+        (before[0] + 1, before[1] + shared, before[2] + 3 * (not shared))
+    _frames_equal(got, cpu.run(x))
 
 
 def _fused_tables(C, D, ntaps, L, device):

@@ -31,7 +31,8 @@ from lora_tpu.wideband import MultiSFWidebandReceiver as JMultiSF
 
 from lora_tpu_torch import LoRaConfig, MultiSFWidebandReceiver
 from lora_tpu_torch.convert import load_tables
-from lora_tpu_torch.ops.cuda_kernels import lag_rows_kernel
+from lora_tpu_torch.ops import cuda_kernels
+from lora_tpu_torch.ops.cuda_kernels import _lag_vector_width, lag_rows_kernel
 from lora_tpu_torch.rx.frontend import (detection_metrics_planes, lag_rows_planes,
                                         metrics_from_lag_rows,
                                         multi_sf_detection_metrics)
@@ -113,6 +114,56 @@ def test_lag_rows_kernel_on_cpu_is_the_plain_version():
     assert torch.equal(e, e_p) and sorted(qs) == [1, 2, 4]
     for m in qs:
         assert torch.equal(qs[m][0], qs_p[m][0]) and torch.equal(qs[m][1], qs_p[m][1])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lag_rows_kernel_reads_pitched_planes(dtype):
+    """The channelizer's view (``buf[..., :n]`` of a ``[C, 2, n_pad]``
+    buffer) gives what its contiguous copy gives, and what JAX's plain
+    version gives on the same input."""
+    sps, ms, n = 128, (1, 2, 4, 8, 16, 32), 41 * 128 + 17
+    buf = torch.from_numpy(_planes(3, n + 7, seed=5)).to(getattr(torch, dtype))
+    view = buf[..., :n]
+    assert not view.is_contiguous() and view.stride(-2) == n + 7
+    got = lag_rows_kernel(view, sps, ms)
+    same = lag_rows_kernel(view.contiguous(), sps, ms)
+    assert torch.equal(got[0], same[0])
+    for m in ms:
+        assert torch.equal(got[1][m][0], same[1][m][0]) and torch.equal(got[1][m][1], same[1][m][1])
+    want = jfrontend.lag_rows_planes(jnp.asarray(view.float().numpy()).astype(getattr(jnp, dtype)),
+                                     sps, ms)
+    assert_rows_close(got, want, ms)
+
+
+def _width_case(case):
+    """Planes for ``_lag_vector_width`` and the width it must pick."""
+    n = 1759 * 256 + 247
+    if case == "gateway-view-bf16":      # the channelizer's view: pitch n + 1
+        return torch.zeros((4, 2, n + 1), dtype=torch.bfloat16)[..., :n], 256, 8
+    if case == "pitched-f32":
+        return torch.zeros((4, 2, n + 1))[..., :n], 256, 4
+    if case == "contiguous-odd-length":
+        return torch.zeros((4, 2, n), dtype=torch.bfloat16), 256, 1
+    if case == "unaligned-pitch":
+        return torch.zeros((4, 2, n + 4), dtype=torch.bfloat16)[..., :n], 256, 1
+    if case == "sps-off-the-grid":
+        return torch.zeros((4, 2, 100 * 30)), 100, 4
+    if case == "bf16-sps-off-the-grid":
+        return torch.zeros((4, 2, 100 * 30), dtype=torch.bfloat16), 100, 1
+    if case == "base-off-the-grid":
+        return torch.zeros((4, 2, 4104))[..., 1:4097], 256, 1
+    return torch.zeros((2, 4100))[:, :4096].reshape(1, 2, 4096), 256, 4   # one stream
+
+
+@pytest.mark.parametrize("case", ["gateway-view-bf16", "pitched-f32", "contiguous-odd-length",
+                                  "unaligned-pitch", "sps-off-the-grid", "bf16-sps-off-the-grid",
+                                  "base-off-the-grid", "one-stream"])
+def test_lag_vector_width(case):
+    """The multi-lag kernel copies 16 bytes at a time (4 float32 or 8
+    bf16 samples) where the planes' base, both strides and sps allow it,
+    else one sample."""
+    x3, sps, want = _width_case(case)
+    assert _lag_vector_width(x3, sps) == want
 
 
 @pytest.mark.parametrize("case", ["lag-0", "no-lags", "no-row", "fp16", "three-planes"])
@@ -237,6 +288,47 @@ def test_gateway_shared_and_per_sf_detection_agree(two_sf):
     for sf in wr.sfs:
         for f in ("valid", "channel", "start", "payload", "length", "hdr", "n_dropped"):
             assert torch.equal(getattr(res[True][sf], f), getattr(res[False][sf], f)), f
+
+
+@pytest.mark.parametrize("shared", [True, False], ids=["shared", "per-sf"])
+def test_gateway_hands_over_the_channel_planes(two_sf, monkeypatch, shared):
+    """With shared detection the multi-lag pass and every SF's Phase B read
+    the channelizer's pitched view, uncopied; the per-SF detection copies
+    the planes once for all SFs. Both decode the same lanes."""
+    x, _, wr = two_sf
+    n_vec = len(x) // wr.M
+    if (n_vec - wr.pfb.K + 1) % 8 == 0:    # n_out off the pitch: the view is not contiguous
+        n_vec -= 1
+    xf = torch.from_numpy(np.stack([x.real, x.imag])[:, :n_vec * wr.M].astype(np.float32))
+    view = wr._channel_planes(xf)
+    assert not view.is_contiguous()
+    monkeypatch.setattr(wr, "shared_detection", not shared)
+    other = wr.process(xf)
+    monkeypatch.setattr(wr, "shared_detection", shared)
+    seen, k3 = [], cuda_kernels.lag_rows_kernel
+
+    def spy_k3(planes, *a):
+        seen.append(("K3", planes.stride(), planes.is_contiguous()))
+        return k3(planes, *a)
+
+    def spy_stage(sf, stage):
+        def fn(planes, *a, **kw):
+            seen.append((sf, planes.stride(), planes.is_contiguous()))
+            return stage(planes, *a, **kw)
+        return fn
+
+    monkeypatch.setattr(cuda_kernels, "lag_rows_kernel", spy_k3)
+    for sf, rx in wr.rxs.items():
+        monkeypatch.setattr(rx, "process_pooled_planes", spy_stage(sf, rx.process_pooled_planes))
+    got = wr.process(xf)
+    if shared:
+        assert [w for w, _, _ in seen] == ["K3", 7, 8]
+        assert all(st == view.stride() and not cont for _, st, cont in seen)
+    else:
+        assert [w for w, _, _ in seen] == [7, 8] and all(cont for _, _, cont in seen)
+    for sf in wr.sfs:
+        for f in ("valid", "channel", "start", "payload", "length", "hdr", "n_dropped"):
+            assert torch.equal(getattr(got[sf], f), getattr(other[sf], f)), f
 
 
 def test_gateway_options():
