@@ -61,7 +61,23 @@ Phases, each of which passes or exits non-zero:
    kernel) and ``pfb_timings(1024)``; the gradient engine on the dense
    bench block (the decode gate, ``run()`` against the CPU, its median
    call beside the fft engine's);
-11. each kernel's time beside its bound, its plain version's time and a
+11. streaming on the card (``lora_tpu_torch.stream``), each path a
+   capture of at least three blocks with packets across block seams,
+   pushed in chunks of an odd size through the native sample ring, with
+   every count zeroed just before it and read just after (each kernel of
+   the path once a block), no host synchronisation in a block's enqueue
+   and one in its drain: (a) ``StreamingReceiver`` on the dense geometry
+   (the bench block's rows end to end, 134,217,728 samples); (b)
+   ``WidebandStreamingReceiver`` on the wideband receiver at M = 1024; (c)
+   the same on the EU868 plan gateway, SF7-12, 2 Msps; each gated (every
+   packet decoded exactly once, at its placement, with its payload, and
+   no other frame) and held to one ``run()`` of the whole capture, with
+   its streamed rate; the ring's write and peek rates and a block's
+   host-to-card copy, pinned ``non_blocking`` against pageable; the
+   device's idle share over the streamed plan run; (d) ``python -m
+   lora_tpu_torch.cli gateway --plan EU868 --stream`` (its ``main``) on a
+   file of (c)'s capture, whose lines must be (c)'s frames;
+12. each kernel's time beside its bound, its plain version's time and a
    library call's time where one computes the same function (the
    polyphase FIR at the wideband shape, float32 and bf16 out, and at the
    gateway's; the gateway's numbers also go into its ``kernels`` entry;
@@ -1796,6 +1812,481 @@ def phase_kernel_times(rx, planes, launches, worst_err, receivers, xd_wide,
         ("det_wm", "profile_packing", "tools/profile_packing.py:32"))]}))
 
 
+# ------------------------------------------------------------ streaming
+STREAM_CHUNK = 1_000_003        # odd push size: blocks straddle pushes
+STREAM_BLOCKS = 4               # hops a capture spans: at least three blocks
+
+
+def host_syncs_in(fn) -> list:
+    """Host-device synchronisations in ``fn()``: those torch's sync debug
+    mode reports (``host_syncs``), then one ``"Event.synchronize"`` for
+    each CUDA event ``fn`` waits on, which the mode does not report."""
+    import torch
+
+    waited, sync = [], torch.cuda.Event.synchronize
+
+    def counted(ev):
+        waited.append("Event.synchronize")
+        return sync(ev)
+
+    torch.cuda.Event.synchronize = counted
+    try:
+        reported = host_syncs(fn)
+    finally:
+        torch.cuda.Event.synchronize = sync
+    return reported + waited
+
+
+def stream_push(sr, x, chunk: int = STREAM_CHUNK, syncs=None):
+    """Push the host capture ``x`` in ``chunk``-sample pieces, then flush;
+    returns ``(frames, wall seconds from the first push to flush()'s
+    return)``. With ``syncs`` (a dict), every block's enqueue and every
+    drain are wrapped to count their host synchronisations: ``syncs
+    ["enqueue"]`` one count a block, ``syncs["drain"]`` ``(syncs, blocks
+    drained)`` a call."""
+    if syncs is not None:
+        enqueue, drain = sr._enqueue, sr._drain
+
+        def counted_enqueue(*a):
+            syncs["enqueue"].append(host_syncs_in(lambda: enqueue(*a)))
+
+        def counted_drain(keep):
+            before = len(sr._pending)
+            syncs["drain"].append((len(host_syncs_in(lambda: drain(keep))),
+                                   before - len(sr._pending)))
+
+        syncs.update(enqueue=[], drain=[])
+        sr._enqueue, sr._drain = counted_enqueue, counted_drain
+    t0 = time.perf_counter()
+    frames = []
+    for off in range(0, len(x), chunk):
+        frames += sr.push(x[off:off + chunk])
+    frames += sr.flush()
+    wall = time.perf_counter() - t0
+    if syncs is not None:
+        del sr._enqueue, sr._drain
+    return frames, wall
+
+
+def stream_gate(frames, placements, label: str, sps_of, fault=None) -> None:
+    """Every placement ``(sf, channel, index, payload)`` is decoded exactly
+    once: by one frame at its SF (``tap_header.sf``; 0 for the dense
+    stream) and channel whose ``sample_index`` lies within 3 symbols of
+    ``index`` (``sps_of(sf)`` channel-rate samples a symbol) and whose
+    payload starts with ``payload``; and no other frame is emitted.
+
+    ``fault(frame)``: true for a frame that the receiver itself decodes
+    wrongly, the fault ROADMAP.md §3 logs (the fft drift pass, SF11-12,
+    mis-rounding a clean packet whose tones sit near half a bin: a
+    CRC-failing payload, the same in one call over the whole capture and
+    in JAX's receiver). Such a frame still has to be the one frame at its
+    placement; it is printed, not counted as the streamer's error."""
+    import bisect
+
+    by_key = {}
+    for i, f in enumerate(frames):
+        by_key.setdefault((f.tap_header.sf, f.channel), []).append((f.sample_index, i))
+    for v in by_key.values():
+        v.sort()
+    used, missing, faulty = set(), [], []
+    for sf, chan, idx, payload in placements:
+        near = by_key.get((sf, chan), [])
+        tol = 3 * sps_of(sf)
+        lo = bisect.bisect_left(near, (idx - tol, -1))
+        hi = bisect.bisect_right(near, (idx + tol, len(frames)))
+        hits = [i for _, i in near[lo:hi] if frames[i].payload[:len(payload)] == payload]
+        if not hits and fault is not None and len(near[lo:hi]) == 1 \
+                and fault(frames[near[lo][1]]):
+            hits = [near[lo][1]]
+            f = frames[hits[0]]
+            faulty.append((sf, chan, idx, payload.hex(), f.payload.hex()))
+        if len(hits) != 1:
+            missing.append((sf, chan, idx, len(hits)))
+        used.update(hits)
+    extra = [(f.tap_header.sf, f.channel, f.sample_index, f.payload[:6].hex())
+             for i, f in enumerate(frames) if i not in used]
+    print(f"stream {label}: {len(placements) - len(missing)}/{len(placements)} placements "
+          f"decoded exactly once at their placement, {len(frames)} frames, {len(extra)} "
+          f"other frames")
+    for sf, chan, idx, sent, got in faulty:
+        print(f"stream {label}: KNOWN RECEIVER FAULT (ROADMAP.md section 3, the fft drift "
+              f"pass): SF{sf} channel {chan} at {idx} sent {sent}, decoded {got} (CRC fails), "
+              f"the same in one run() over the whole capture")
+    check(not missing and not extra, f"{label}: placements not decoded exactly once (sf, "
+          f"channel, index, hits): {missing[:8]}; frames that match no placement (sf, "
+          f"channel, index, payload): {extra[:8]}")
+
+
+def stream_vs_oneshot(frames, oneshot, label: str, sps_of) -> None:
+    """The streamed frames are the one-shot ``run()``'s: the same SF,
+    channel, frequency, PHY header and payload, frame for frame, and
+    sample indices within one symbol of the decoding SF (a packet whose
+    rising edge falls on a block's first window is reported one window
+    later than in one call over the whole capture, as the JAX streamer
+    reports it)."""
+    def keyed(fs):
+        return sorted(((f.tap_header.sf, f.channel, f.tap_header.frequency,
+                        f.phy_header.to_bytes(), f.payload), f.sample_index) for f in fs)
+
+    a, b = keyed(frames), keyed(oneshot)
+    same = [k for k, _ in a] == [k for k, _ in b]
+    moved = [(k[0], k[1], ia - ib) for (k, ia), (_, ib) in zip(a, b) if ia != ib]
+    far = [m for m in moved if abs(m[2]) > sps_of(m[0])]
+    print(f"stream {label}: {len(a)} streamed frames, {len(b)} from one run() of the whole "
+          f"capture: {'the same' if same else 'NOT the same'} frames, {len(moved)} sample "
+          f"indices moved (sf, channel, streamed - one-shot): {moved[:6]}")
+    check(same, f"{label}: the streamed frames differ from run()'s: "
+          f"{sorted(set(k for k, _ in a) ^ set(k for k, _ in b))[:4]}")
+    check(not far, f"{label}: sample indices more than a symbol from run()'s: {far[:8]}")
+
+
+def check_stream_syncs(syncs, label: str) -> None:
+    """A block's enqueue makes no host synchronisation; a drain makes one
+    for each block it drains."""
+    n_drained = sum(b for _, b in syncs["drain"])
+    bad = [(s, b) for s, b in syncs["drain"] if s != b]
+    seen = [(k, s) for k, s in enumerate(syncs["enqueue"]) if s]
+    print(f"stream {label}: host syncs: {sum(map(len, syncs['enqueue']))} in "
+          f"{len(syncs['enqueue'])} block enqueues, {sum(s for s, _ in syncs['drain'])} in "
+          f"drains of {n_drained} blocks")
+    check(len(syncs["enqueue"]) == n_drained, f"{label}: {len(syncs['enqueue'])} blocks "
+          f"enqueued, {n_drained} drained")
+    check(not seen, f"{label}: enqueues made host syncs (block, where): {seen[:4]}")
+    check(not bad, f"{label}: drains (syncs, blocks) {bad[:8]}")
+
+
+def run_stream(make, x, label: str, want: dict):
+    """Two streamed runs of ``x``, each through a fresh streamer ``make()``
+    on one receiver, after one call of the receiver on a block of zeros
+    (set-up: its first call at the block length builds its tables for that
+    length, with host-to-card copies). The first is timed, unwrapped, from
+    the first push to ``flush()``'s return. The second has every count
+    zeroed just before it and read just after (each kernel of ``want``
+    once a block: a block is one receiver call), counts the host
+    synchronisations of every block's enqueue and drain, and must give
+    the first run's frames. Returns ``(frames, wall seconds)``."""
+    import torch
+
+    sr = make()
+    # set-up: the receiver's tables for the block length, built at its
+    # first call of that length
+    sr._process(torch.zeros((2, sr.block_len), device="cuda"))
+    torch.cuda.synchronize()
+    timed, wall = stream_push(sr, x)
+    sr.close()
+    sr = make()
+    calls = [0]
+    process = sr._process
+
+    def counted(planes):
+        calls[0] += 1
+        return process(planes)
+
+    sr._process = counted
+    syncs = {}
+    torch.cuda.synchronize()
+    zero_counts()
+    frames, _ = stream_push(sr, x, syncs=syncs)
+    torch.cuda.synchronize()
+    n = counts()
+    sr.close()
+    expect = {k: want.get(k, 0) * calls[0] for k in n}
+    print(f"stream {label}: {calls[0]} blocks of {sr.block_len} samples (hop {sr.hop}, halo "
+          f"{sr.halo}), launches {n}; {len(x) / wall / 1e6:.2f} Msamples/s streamed "
+          f"({len(x)} samples, {wall * 1e3:.1f} ms from the first push to flush()'s return, "
+          f"{wall * 1e3 * sr.hop / len(x):.2f} ms a hop)")
+    check(calls[0] >= 3, f"{label}: {calls[0]} blocks")
+    check(n == expect, f"{label}: expected launches {expect}, got {n}")
+    check_stream_syncs(syncs, label)
+    check(frame_keys(timed) == frame_keys(frames), f"{label}: the two runs gave other frames")
+    return frames, wall
+
+
+def frame_keys(frames) -> list:
+    return sorted((f.tap_header.sf, f.channel, f.sample_index, f.phy_header.to_bytes(),
+                   f.payload) for f in frames)
+
+
+def dense_stream(x, pkt_len: int):
+    """The dense bench block's 64 rows laid end to end as one stream, each
+    row's trailing partial packet zeroed. Returns ``(stream, placements)``:
+    the placements ``(0, 0, preamble start, deadbeef)``."""
+    import numpy as np
+
+    C, L = x.shape
+    rows = x.copy()
+    placements = []
+    for c in range(C):
+        n = (L - 997 * c) // pkt_len
+        rows[c, 997 * c + n * pkt_len:] = 0
+        placements += [(0, 0, c * L + 997 * c + i * pkt_len + 4096, DEADBEEF)
+                       for i in range(n)]
+    return rows.reshape(-1), placements
+
+
+def phase_stream_dense(cfg, x, pkt_len, smi_line):
+    """(a) ``StreamingReceiver`` on the dense geometry (SF7 CR4/8 at 1 Msps,
+    fft engine), native ring, pushes of an odd size, ``max_in_flight=2``,
+    ``block_symbols=512``: the bench block's rows end to end (134,217,728
+    samples). Gates: every packet once at its placement, and the frames of
+    one ``run()`` over the whole stream."""
+    from lora_tpu_torch import DenseReceiver
+    from lora_tpu_torch.stream import StreamingReceiver
+
+    stream, placements = dense_stream(x, pkt_len)
+    rx = DenseReceiver(cfg, max_candidates=16, max_symbols=24, sfd_search=12,
+                       demod_method="fft")
+    def make():
+        return StreamingReceiver(rx, block_symbols=512, max_in_flight=2, use_native_ring=True)
+
+    sr = make()
+    sr.close()
+    check((sr.hop, sr.halo) == (524_288, 52_224), f"dense stream geometry {sr.hop}, {sr.halo}")
+    frames, wall = run_stream(make, stream, "(a) dense", {"det_metrics": 1})
+    one = DenseReceiver(cfg, max_candidates=4096, max_symbols=24, sfd_search=12,
+                        demod_method="fft")
+    stream_vs_oneshot(frames, one.run(stream), "(a) dense", lambda sf: rx.sps)
+    stream_gate(frames, placements, "(a) dense", lambda sf: rx.sps)
+    print(f"stream (a) dense: {len(stream) / wall / 1e6:.2f} Msamples/s on {smi_line}")
+    return len(stream) / wall
+
+
+def wideband_stream_capture(cfg, M: int, active, L: int, seed: int = 6, device: str = "cuda"):
+    """A wideband capture of ``L`` samples built on the card (noise sigma
+    1e-3 a part) with one ``deadbeef`` packet of ``cfg`` (a channel-rate
+    config) on each channel of ``active``, at positions spread evenly over
+    the capture, upconverted with a float64 carrier phase. Returns ``(host
+    complex64 capture, placements, packet length)``: channel-rate
+    placements."""
+    import dataclasses
+    import math
+
+    import torch
+
+    from lora_tpu_torch.channelizer import pfb_channel_freqs
+    from lora_tpu_torch.tx.modulator import modulate_frame
+
+    wide_rate = M * cfg.samp_rate
+    wide_cfg = dataclasses.replace(cfg, samp_rate=wide_rate)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.view_as_complex(1e-3 * torch.randn((L, 2), generator=gen, device=device))
+    pkt = torch.from_numpy(modulate_frame(wide_cfg, DEADBEEF, snr_db=None)).to(device)
+    pkt = pkt.to(torch.complex128)
+    n = pkt.shape[0]
+    t = torch.arange(n, dtype=torch.float64, device=device)
+    freqs = pfb_channel_freqs(wide_rate, M)
+    placements = []
+    for j, c in enumerate(active):
+        pos = j * (L - n - 1) // len(active)
+        cycles = torch.remainder((t + pos) * (freqs[c] / wide_rate), 1.0)
+        x[pos:pos + n] += (pkt * torch.polar(torch.ones_like(cycles), 2.0 * math.pi * cycles)
+                           ).to(torch.complex64)
+        placements.append((cfg.sf, c, pos // M, DEADBEEF))
+    return x.cpu().numpy(), placements, n
+
+
+def phase_stream_wideband(smi_line):
+    """(b) ``WidebandStreamingReceiver`` on a ``WidebandReceiver`` at M =
+    1024 (SF7 CR4/8 channels at 250 ksps, every 16th active, ``pool=128``,
+    float32 planes), ``block_symbols=64``: a capture of four hops (~67 M
+    samples, longer than one ~30 M-sample block) with a packet on each
+    active channel, spread over the capture. Gates as (a)."""
+    from lora_tpu_torch import LoRaConfig, WidebandReceiver
+    from lora_tpu_torch.stream import WidebandStreamingReceiver
+
+    M = 1024
+    active = list(range(0, M, 16))
+    cfg = LoRaConfig(sf=7, cr=4, samp_rate=250e3, crc=True)
+    wr = WidebandReceiver(cfg, M, pool=2 * len(active), max_candidates=2, max_symbols=24,
+                          sfd_search=12, demod_method="fft")
+    def make():
+        return WidebandStreamingReceiver(wr, block_symbols=64, max_in_flight=2)
+
+    sr = make()
+    sr.close()
+    x, placements, n = wideband_stream_capture(cfg, M, active, STREAM_BLOCKS * sr.hop)
+    seams = sum(any(p[2] * M < k * sr.hop < p[2] * M + n for p in placements)
+                for k in range(1, STREAM_BLOCKS))
+    print(f"stream (b) wideband M={M}: {len(placements)} packets of {n} samples over "
+          f"{len(x)} samples, {seams} of {STREAM_BLOCKS - 1} seams with a packet across")
+    check(seams >= 1, "(b): no packet across a seam")
+    frames, wall = run_stream(make, x, f"(b) wideband M={M}", {"det_metrics": 1, "pfb_fir": 1})
+    stream_vs_oneshot(frames, wr.run(x), "(b) wideband", lambda sf: wr.rx.sps)
+    stream_gate(frames, placements, "(b) wideband", lambda sf: wr.rx.sps)
+    print(f"stream (b) wideband: {len(x) / wall / 1e6:.2f} Msamples/s on {smi_line}")
+    return len(x) / wall
+
+
+def plan_stream_capture(gw, L: int, hop: int, seed: int = 8, device: str = "cuda"):
+    """The EU868 plan capture streamed in (c) and (d), built on the card:
+    ``L`` samples of noise (sigma 1e-3 a part) and two packets on every
+    in-band channel, SFs 7-12 round-robin: the first spread over the
+    capture, the second starting one SF12 symbol before a block seam
+    (``hop``) that leaves it clear of the first. Returns ``(host complex64
+    capture, placements)``: channel-rate preamble starts."""
+    import math
+
+    import torch
+
+    from lora_tpu_torch import LoRaConfig
+    from lora_tpu_torch.tx.modulator import modulate_frame
+
+    rate, D = gw.samp_rate, gw.decim
+    sym12 = 2 ** 12 * D * 2          # an SF12 symbol at the wideband rate
+    seams = [k * hop for k in range(1, L // hop)]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.view_as_complex(1e-3 * torch.randn((L, 2), generator=gen, device=device))
+    C = len(gw.channels)
+    placements = []
+    for i, f_abs in enumerate(gw.channels):
+        first = None
+        for j in range(2):
+            sf = gw.sfs[(i + 3 * j) % len(gw.sfs)]
+            wcfg = LoRaConfig(sf=sf, cr=4, samp_rate=rate, crc=True, sync_word=0x34)
+            payload = DEADBEEF + bytes([i, j])
+            pkt = torch.from_numpy(modulate_frame(wcfg, payload, snr_db=None)).to(device)
+            pkt = pkt.to(torch.complex128)
+            n = pkt.shape[0]
+            if j == 0:
+                pos = (i * (L - n - 1) // C) // D * D
+                first = (pos, pos + n)
+            else:
+                clear = [s - sym12 for s in seams[i % len(seams):] + seams[:i % len(seams)]
+                         if s - sym12 + n + sym12 < first[0] or s - 2 * sym12 > first[1]]
+                check(bool(clear), f"channel {i}: no seam clear of its first packet")
+                pos = clear[0]
+            check(0 <= pos and pos + n <= L, f"SF{sf}: the packet does not fit the capture")
+            t = torch.arange(pos, pos + n, dtype=torch.float64, device=device)
+            cycles = torch.remainder(t * ((f_abs - gw.center_freq) / rate), 1.0)
+            x[pos:pos + n] += (pkt * torch.polar(torch.ones_like(cycles), 2.0 * math.pi * cycles)
+                               ).to(torch.complex64)
+            placements.append((sf, i, pos // D, payload))
+    return x.cpu().numpy(), placements
+
+
+def ring_and_copy_rates(block_len: int, smi_line: str) -> None:
+    """The host side of one block: the ring's write and peek of
+    ``block_len`` complex64 (host clock, best of 5), and the block's
+    host-to-card copy from a page-locked slot (``non_blocking``) against a
+    pageable ``.to()`` (CUDA events, mean of 10)."""
+    import numpy as np
+    import torch
+
+    from lora_tpu_torch.native import SampleRing
+
+    nbytes = block_len * 8
+    x = np.random.default_rng(0).normal(size=(block_len, 2)).astype(np.float32)
+    x = x.view(np.complex64).reshape(-1)
+    slot = torch.empty(block_len, dtype=torch.complex64, pin_memory=True)
+    ring = SampleRing(8 * nbytes)
+    t_w, t_p = [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        check(ring.write(x) == nbytes, "ring write short")
+        t1 = time.perf_counter()
+        check(ring.peek_into(slot) == nbytes, "ring peek short")
+        t_p.append(time.perf_counter() - t1)
+        t_w.append(t1 - t0)
+        ring.advance(nbytes)
+    ring.close()
+    check(np.array_equal(slot.numpy(), x), "ring: peeked block differs from the written one")
+    pinned = cuda_ms(lambda: slot.to("cuda", non_blocking=True), 10)
+    src = torch.from_numpy(x)
+    pageable = cuda_ms(lambda: src.to("cuda"), 10)
+    print(f"ring (host, {nbytes / 1e6:.1f} MB block): write {nbytes / min(t_w) / 1e9:.2f} GB/s, "
+          f"peek into a pinned slot {nbytes / min(t_p) / 1e9:.2f} GB/s, write+peek "
+          f"{2 * nbytes / (min(t_w) + min(t_p)) / 1e9:.2f} GB/s; host-to-card copy of the block: "
+          f"pinned non_blocking {pinned:.3f} ms ({nbytes / pinned / 1e6:.2f} GB/s), pageable "
+          f".to() {pageable:.3f} ms ({nbytes / pageable / 1e6:.2f} GB/s); on {smi_line}")
+
+
+def phase_stream_plan(smi_line):
+    """(c) ``WidebandStreamingReceiver`` on the EU868 ``PlanGateway`` (868.0
+    MHz, 2 Msps, SF7-12, ``pool=24``), ``block_symbols=64`` (hop 4,194,304,
+    block 7,536,728 samples): four hops with 14 packets, 7 across seams.
+    Gates as (a); then the ring's and the copy's rates at its block, and
+    the device's idle share over a streamed run (device busy, profiled,
+    against the unprofiled run's wall time). (d) ``lora_tpu_torch.cli
+    gateway --plan EU868 --stream`` on a file of the same capture: every
+    placement once, the same frame lines as (c)'s frames."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    from lora_tpu_torch import PlanGateway
+    from lora_tpu_torch import cli
+    from lora_tpu_torch.stream import WidebandStreamingReceiver
+
+    center, rate = PLAN_GEOMS["EU868"]
+    gw = PlanGateway("EU868", center, rate, sfs=GATEWAY_SFS, pool=24, max_candidates=2,
+                     max_symbols=24, sfd_search=12, demod_method="fft")
+    def make():
+        return WidebandStreamingReceiver(gw, block_symbols=64, max_in_flight=2)
+
+    sr = make()
+    sr.close()
+    check((sr.hop, sr.block_len) == (4_194_304, 7_536_728),
+          f"plan stream geometry {sr.hop}, {sr.block_len}")
+    x, placements = plan_stream_capture(gw, STREAM_BLOCKS * sr.hop, sr.hop)
+    sps_of = {sf: rx.sps for sf, rx in gw.rxs.items()}.get
+    frames, wall = run_stream(make, x, "(c) plan EU868", {"fused_chan": 1, "lag_rows": 1})
+    oneshot = gw.run(x)
+    stream_vs_oneshot(frames, oneshot, "(c) plan EU868", sps_of)
+    in_oneshot = {(f.tap_header.sf, f.channel, f.payload) for f in oneshot}
+
+    def drift_fault(f):
+        return (gw.rxs[f.tap_header.sf].fft_drift_pass and f.crc_ok is False
+                and (f.tap_header.sf, f.channel, f.payload) in in_oneshot)
+
+    stream_gate(frames, placements, "(c) plan EU868", sps_of, fault=drift_fault)
+    rate_c = len(x) / wall
+    print(f"stream (c) plan EU868: {rate_c / 1e6:.2f} Msamples/s, "
+          f"{wall * 1e3 / (len(x) / sr.hop):.2f} ms a hop of {sr.hop} samples, on {smi_line}")
+    ring_and_copy_rates(sr.block_len, smi_line)
+    def streamed_once():
+        s = make()
+        stream_push(s, x)
+        s.close()
+
+    # the profiler can drop a block's events: the most complete of three
+    # traced runs is kept, and the busy time taken a traced block
+    _, rows, _ = device_rows(streamed_once)
+    blocks = len(x) // sr.hop + 1
+    traced = min(sum(c for name, _, c in rows if k in name) for k in ("fused_chan", "lag_rows"))
+    check(traced > 0, "(c): the profiler traced no block of the streamed run")
+    busy = sum(r[1] for r in rows) / traced
+    copies = sum(r[1] for r in rows if "memcpy" in r[0].lower()) / traced
+    print(f"stream (c) plan EU868: device busy {busy:.3f} ms a streamed block (copies "
+          f"{copies:.3f} ms; {traced} of {blocks} blocks traced), {blocks} blocks in "
+          f"{wall * 1e3:.1f} ms unprofiled: device idle {100 * (1 - busy * blocks / (wall * 1e3)):.1f} % of the "
+          f"streamed run, on {smi_line}")
+    for key, ms, count in rows[:8]:
+        print(f"  {ms:8.3f} ms x{count:<5d} {key[:90]}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "eu868.cf32")
+        x.tofile(path)
+        out = io.StringIO()
+        zero_counts()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["gateway", path, "--plan", "EU868", "--center-freq", str(center),
+                           "--samp-rate", str(rate), "--pool", "24", "--stream",
+                           "--block-symbols", "96"])
+        n = counts()
+    lines = out.getvalue().strip().splitlines()
+    want = sorted(f"ch{f.channel} sf{f.tap_header.sf} {f.tap_header.frequency}Hz "
+                  + " ".join(f"{b:02x}" for b in f.to_bytes(1)) for f in frames)
+    print(f"stream (d) cli gateway --plan EU868 --stream: rc {rc}, {len(lines)} frame lines, "
+          f"launches {n}")
+    check(rc == 0, f"(d): exit code {rc}")
+    check(n["fused_chan"] >= 3 and n["fused_chan"] == n["lag_rows"]
+          and n["det_metrics"] == n["pfb_fir"] == 0, f"(d): launches {n}")
+    check(sorted(lines) == want, f"(d): the command's lines differ from (c)'s frames: "
+          f"{sorted(set(lines) ^ set(want))[:4]}")
+    return rate_c
+
+
 def main() -> int:
     import torch
 
@@ -1851,6 +2342,15 @@ def main() -> int:
             phase_profile("plan EU868", plan_calls(*plans["EU868"][:2]))
             phase_profile_plan(*plans["US915"][:2])
         stamp(f"throughput ({when})")
+    # after the profiler's phases, whose traces must keep every kernel of
+    # the paths (a profile of a streamed run before them left K3, K4 and K5
+    # out of their traces)
+    phase_stream_dense(cfg, x, pkt_len, smi_line)
+    stamp("phase_stream_dense")
+    phase_stream_wideband(smi_line)
+    stamp("phase_stream_wideband")
+    phase_stream_plan(smi_line)
+    stamp("phase_stream_plan")
     variants = phase_variant_times(planes[torch.float32], rx.sps)
     stamp("phase_variant_times")
     phase_kernel_times(rx, planes, launches, worst, receivers, xd_wide, wide_launches,

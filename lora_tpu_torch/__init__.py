@@ -24,7 +24,12 @@ Ported so far:
   its window-major kernel (``csrc/det_wm.cu``), with the studies that
   time them against the "pp" kernel (``lora_tpu_torch.tools``), and the
   per-stage timing study (``profiling``; ``python -m lora_tpu_torch.cli
-  timings``).
+  timings``);
+- streaming (``stream``: ``StreamingReceiver``,
+  ``WidebandStreamingReceiver``) through the package's own C++ sample
+  ring (``native``) and page-locked staging, the UDP and file frame sinks
+  (``io.udp``, ``io.sinks``), and the ``gateway`` command
+  (``python -m lora_tpu_torch.cli gateway``).
 """
 
 __version__ = "0.1.0"

@@ -590,3 +590,80 @@ def test_plan_gateway_on_card_matches_cpu(cuda_device, fused):
              w.tap_header.frequency, w.tap_header.sf)
         assert g.snr == pytest.approx(w.snr, rel=1e-4)
         assert g.cfo == pytest.approx(w.cfo, abs=1.0)
+
+
+def _stream_capture(cfg, n_packets, seed):
+    """Packets of ``cfg`` at 40 dB, 30-60 symbols apart (tests/test_stream.py's stream)."""
+    rng = np.random.default_rng(seed)
+    sps = cfg.samples_per_symbol
+    parts = []
+    for i in range(n_packets):
+        parts.append(np.zeros(int(rng.integers(30, 60)) * sps, np.complex64))
+        parts.append(modulate_frame(cfg, bytes([i, 0xA5, i ^ 0xFF]), snr_db=40.0, seed=seed + i))
+    parts.append(np.zeros(32 * sps, np.complex64))
+    return np.concatenate(parts)
+
+
+def _streamed(sr, x, chunk):
+    frames = []
+    for off in range(0, len(x), chunk):
+        frames += sr.push(x[off:off + chunk])
+    frames += sr.flush()
+    sr.close()
+    return [(f.sample_index, f.payload, f.phy_header.to_bytes(), round(f.cfo, 1)) for f in frames]
+
+
+def test_stream_blocks_in_flight_match_one_at_a_time(cuda_device):
+    """``max_in_flight=3`` with tiny blocks, all pushed at once so the pump
+    queues block after block, gives the frames of ``max_in_flight=1`` and
+    of the CPU: a staging slot refilled while its copy is in flight would
+    corrupt a block on the card."""
+    from lora_tpu_torch.stream import StreamingReceiver
+
+    cfg = LoRaConfig(sf=7, cr=4, samp_rate=250e3, crc=True)
+    x = _stream_capture(cfg, 12, seed=21)
+    out = {}
+    for dev, mif in ((cuda_device, 3), (cuda_device, 1), ("cpu", 1)):
+        rx = DenseReceiver(cfg, max_candidates=8, max_symbols=24, sfd_search=12,
+                           demod_method="fft", device=dev)
+        sr = StreamingReceiver(rx, block_symbols=64, max_in_flight=mif)
+        if sr._stager.device.type == "cuda":
+            assert all(s.is_pinned() for s in sr._stager._slots)
+            assert len(sr._stager._slots) == mif + 1
+        out[(str(dev), mif)] = _streamed(sr, x, len(x))
+    got, serial, cpu = out.values()
+    assert len(got) == 12
+    assert got == serial
+    assert [g[:3] for g in got] == [c[:3] for c in cpu]
+
+
+def test_plan_stream_on_card_matches_cpu(cuda_device):
+    """The plan gateway streamed on the card and on the CPU (EU868 at 1 Msps,
+    tests/test_plan_stream.py's capture): the same frames."""
+    from lora_tpu_torch.stream import WidebandStreamingReceiver
+
+    center, rate = 867.3e6, 1e6
+    sps8 = int(2 ** 8 * rate / 125e3)
+    L = 3 * 96 * sps8
+    rng = np.random.default_rng(7)
+    x = (rng.normal(0, 1e-4, L) + 1j * rng.normal(0, 1e-4, L)).astype(np.complex64)
+    t = np.arange(L, dtype=np.float64)
+    for sf, f_abs, pos in ((7, 867.1e6, 2 * sps8), (8, 867.5e6, 90 * sps8),
+                           (7, 867.3e6, 150 * sps8)):
+        wcfg = LoRaConfig(sf=sf, cr=4, samp_rate=rate, crc=True, sync_word=0x34)
+        pkt = modulate_frame(wcfg, bytes([sf, 0x42]), snr_db=None)
+        x[pos:pos + len(pkt)] += (pkt * np.exp(2j * np.pi * (f_abs - center) / rate
+                                               * t[pos:pos + len(pkt)])).astype(np.complex64)
+    out = {}
+    for dev in (cuda_device, "cpu"):
+        gw = PlanGateway("EU868", center, rate, sfs=(7, 8), pool=8, max_candidates=2,
+                         max_symbols=16, sfd_search=10, demod_method="fft", device=dev)
+        sr = WidebandStreamingReceiver(gw, block_symbols=96, max_in_flight=2)
+        frames = []
+        for off in range(0, len(x), 100_003):
+            frames += sr.push(x[off:off + 100_003])
+        frames += sr.flush()
+        sr.close()
+        out[str(dev)] = [(f.channel, f.tap_header.sf, f.sample_index, f.payload) for f in frames]
+    assert len(out["cpu"]) == 3
+    assert out[str(cuda_device)] == out["cpu"]

@@ -30,6 +30,13 @@ def test_import_leaves_jax_and_lora_tpu_out():
         "lora_tpu_torch.DenseReceiver, lora_tpu_torch.WidebandReceiver\n"
         "lora_tpu_torch.PolyphaseChannelizer, lora_tpu_torch.MultiSFWidebandReceiver\n"
         "lora_tpu_torch.PlanGateway\n"
+        "from lora_tpu_torch.stream import StreamingReceiver, WidebandStreamingReceiver\n"
+        "from lora_tpu_torch.io.udp import MessageSocketSink\n"
+        "from lora_tpu_torch.io.sinks import MessageFileSink\n"
+        "from lora_tpu_torch.native import SampleRing\n"
+        "SampleRing(64).close()\n"
+        "maps = open('/proc/self/maps').read()\n"
+        "assert 'libhost_io-' in maps and 'libloratpu_host' not in maps, 'host library'\n"
         f"bad = sorted(n for n in sys.modules if n.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -56,6 +63,17 @@ def test_sources_import_no_jax(path):
             continue
         for name in names:
             assert name.split(".")[0] not in FORBIDDEN, f"{path}: imports {name}"
+
+
+def test_host_library_is_the_ports_own():
+    """The streamers' ring and the sinks load the port's own build of its
+    own source, never ``lora_tpu/native``'s library."""
+    from lora_tpu_torch import native
+
+    assert native.SRC == ROOT / "lora_tpu_torch" / "native" / "host_io.cpp"
+    path = Path(native.load()._name)
+    assert path.parent == ROOT / "lora_tpu_torch" / "build"
+    assert path.name.startswith("libhost_io-") and path == native.library_path(path.parent)
 
 
 def test_receiver_defaults_to_the_card():
