@@ -77,12 +77,27 @@ Phases, each of which passes or exits non-zero:
    device's idle share over the streamed plan run; (d) ``python -m
    lora_tpu_torch.cli gateway --plan EU868 --stream`` (its ``main``) on a
    file of (c)'s capture, whose lines must be (c)'s frames;
-12. each kernel's time beside its bound, its plain version's time and a
+12. the receiver facade and the modes of this slice on the card: (a)
+   ``LoRaReceiver(engine="dense")`` at SF7 CR4/8, 1 Msps, one channel
+   (``freq_xlating_fir``) and three (``channelize_list``) of a capture
+   with six packets a channel, every packet decoded, one K1 launch a
+   ``receive()``, the frames equal to the same facade's on the CPU, the
+   median ``receive()``; K1 at the facade's planes against its plain
+   version; (b) the accuracy suites ``short_sim``, ``short_sim_implicit``
+   and ``short_sim_sdr`` (72 traces, 384 packets each) from the port's
+   generator, run by its ``run_suite(engine="dense")``, each 384/384, with
+   their generation and decode seconds, then deleted; (c) ``low_snr`` at
+   SF7 / 250 ksps, -4 dB (6/6) and SF12 / 250 ksps, -16 dB (4/4, the 64M
+   fold budget), no K1 launch, frames equal to the CPU's, and the facade's
+   ``low_snr="auto"`` second pass; (d) implicit headers on both engines
+   (CR 4/5-4/8) and ``debug_trace`` of both engines against the CPU;
+13. each kernel's time beside its bound, its plain version's time and a
    library call's time where one computes the same function (the
    polyphase FIR at the wideband shape, float32 and bf16 out, and at the
    gateway's; the gateway's numbers also go into its ``kernels`` entry;
    the multi-lag kernel on the gateway's pitched view and at the US915
-   plan's planes, whose numbers go into its entry's ``plan`` object).
+   plan's planes, whose numbers go into its entry's ``plan`` object; K1's
+   launches a facade ``receive()`` go into its entry's ``facade`` object).
 
 The line before the last is the ``kernels`` JSON line; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -1627,7 +1642,8 @@ def print_pfb_times(label: str, st: dict, extra: str = "") -> None:
 
 def phase_kernel_times(rx, planes, launches, worst_err, receivers, xd_wide,
                        wide_launches, worst_fir, gw, xd_gw, gw_launches, worst_lag,
-                       plans, worst_fused, variants, tools, worst_variants):
+                       plans, worst_fused, variants, tools, worst_variants,
+                       facade_launches):
     import torch
 
     from lora_tpu_torch.ops.cuda_kernels import (detection_metrics_kernel,
@@ -1756,6 +1772,8 @@ def phase_kernel_times(rx, planes, launches, worst_err, receivers, xd_wide,
         "bound_ms": st["bound_ms"],
         "bound_by": st["bound_by"],
         "library_ms": None,
+        # launches a receive() of the facade, by its channel count
+        "facade": {str(c): n["det_metrics"] for c, n in facade_launches.items()},
     }, {
         "name": "pfb_fir",
         "route": "cuda",
@@ -2287,6 +2305,268 @@ def phase_stream_plan(smi_line):
     return rate_c
 
 
+# ------------------------------------------ the facade, suites, modes
+FACADE_CENTER = 868.1e6
+FACADE_OFFSETS = (-300e3, 0.0, 250e3)   # channels, Hz from the capture's center
+SMOKE_SUITES = ("short_sim", "short_sim_implicit", "short_sim_sdr")
+
+
+def equal_frames(fg, fc, label: str) -> None:
+    """Frames on the card against the CPU's: header bytes, payload,
+    channel, sample index and frequency equal; cfo within 2 Hz, snr
+    within 1e-4 of the CPU's (float32 sums in another order)."""
+    check(len(fg) == len(fc), f"{label}: {len(fg)} frames on the card, {len(fc)} on the CPU")
+    for a, b in zip(fg, fc):
+        check((a.phy_header.to_bytes(), a.payload, a.channel, a.sample_index,
+               a.tap_header.frequency)
+              == (b.phy_header.to_bytes(), b.payload, b.channel, b.sample_index,
+                  b.tap_header.frequency),
+              f"{label}: frame differs from the CPU's")
+        check(abs(a.cfo - b.cfo) <= 2.0, f"{label}: cfo differs from the CPU's")
+        check(abs(a.snr - b.snr) <= 1e-4 * abs(b.snr), f"{label}: snr differs")
+
+
+def facade_capture(seed: int = 21):
+    """A 1 Msps capture of 2^21 samples around ``FACADE_CENTER``: six SF7
+    CR4/8 packets on each channel of ``FACADE_OFFSETS`` (payload ``f0+c,
+    k, de ad be ef``), staggered, over noise of 0.02 a part: ~40 dB in a
+    channel, above the other channels' leakage through the 53 dB channel
+    filter (a scale-invariant detector raises candidates on any chirp
+    above the noise). Returns ``(x, {channel: payloads})``."""
+    import numpy as np
+
+    from lora_tpu_torch import LoRaConfig
+    from lora_tpu_torch.tx.modulator import modulate_frame
+
+    cfg = LoRaConfig(sf=7, cr=4, samp_rate=1e6, crc=True)
+    L = 1 << 21
+    rng = np.random.default_rng(seed)
+    x = (0.02 * (rng.normal(size=L) + 1j * rng.normal(size=L))).astype(np.complex64)
+    want = {}
+    for c, off in enumerate(FACADE_OFFSETS):
+        want[c] = []
+        for k in range(6):
+            payload = bytes([0xF0 + c, k]) + DEADBEEF
+            pkt = modulate_frame(cfg, payload, snr_db=None, seed=10 * c + k)
+            pos = 20_000 + k * 330_000 + c * 97_000
+            t = np.arange(pos, pos + len(pkt), dtype=np.float64)
+            x[pos:pos + len(pkt)] += (pkt * np.exp(2j * np.pi * off / 1e6 * t)).astype(
+                np.complex64)
+            want[c].append(payload)
+    return x, want
+
+
+def phase_facade(smi_line):
+    """``LoRaReceiver(engine="dense")`` on the card at SF7 CR4/8, 1 Msps
+    (the gradient engine): one channel (``freq_xlating_fir``) and three
+    (``channelize_list``) of :func:`facade_capture`; every packet of its
+    channels decoded and no other frame, the frames equal to the same
+    facade's on the CPU, one K1 launch a ``receive()`` (counts zeroed just
+    before, read just after); K1 at the facade's planes against its plain
+    version; the median ``receive()``. Returns ``{channels: launches}``."""
+    import numpy as np
+    import torch
+
+    from lora_tpu_torch import LoRaReceiver
+    from lora_tpu_torch.channelizer import channelize_list
+    from lora_tpu_torch.ops.cuda_kernels import (detection_metrics_kernel,
+                                                 detection_metrics_planes)
+
+    x, want = facade_capture()
+    out = {}
+    for n_ch in (1, 3):
+        kw = dict(samp_rate=1e6, center_freq=FACADE_CENTER,
+                  channel_list=[FACADE_CENTER + o for o in FACADE_OFFSETS[:n_ch]],
+                  bandwidth=125e3, sf=7, cr=4, crc=True, engine="dense",
+                  max_candidates=8, max_symbols=24)
+        rx = LoRaReceiver(**kw)
+        check(rx.device.type == "cuda", "the facade did not default to the card")
+        rx.receive(x)                                   # tables moved, warm
+        torch.cuda.synchronize()
+        zero_counts()
+        frames = rx.receive(x)
+        torch.cuda.synchronize()
+        n = counts()
+        label = f"facade {n_ch} channel{'s' if n_ch > 1 else ''}"
+        check(rx._decoders.method == "gradient", f"{label}: engine {rx._decoders.method}")
+        check(n == {"det_metrics": 1, "pfb_fir": 0, "lag_rows": 0, "fused_chan": 0},
+              f"{label}: launches {n}, want one det_metrics a receive()")
+        got = sorted((f.channel, f.mac_payload) for f in frames)
+        check(got == sorted((c, p) for c in range(n_ch) for p in want[c]),
+              f"{label}: frames {got}")
+        check(all(f.crc_ok and f.tap_header.frequency == int(kw["channel_list"][f.channel])
+                  for f in frames), f"{label}: CRC or tap header")
+        equal_frames(frames, LoRaReceiver(device="cpu", **kw).receive(x), label)
+        ms = call_ms(lambda: rx.receive(x), 5)
+        print(f"{label}: {len(frames)}/{6 * n_ch} packets, launches {n}, frames equal to "
+              f"the CPU's; receive() median {float(np.median(ms)):.3f} ms "
+              f"({[round(v, 3) for v in ms]}; {x.size} samples; {smi_line})")
+        out[n_ch] = n
+    # K1 at the three-channel facade's planes: the channel streams,
+    # padded by the packet region as process() pads them
+    dec = rx._decoders
+    streams = channelize_list(x, rx._taps, list(FACADE_OFFSETS), 1e6, 1, device="cuda")
+    xf = dec._planes_of(streams).contiguous()
+    got = detection_metrics_kernel(xf, dec.sps)
+    ref = detection_metrics_planes(xf, dec.sps)
+    err = float((got[0] - ref[0]).abs().max())
+    check(err <= TOL_CORR_ATOL, f"facade K1 corr err {err}")
+    for g, r in zip(got[1:], ref[1:]):
+        check(bool(torch.allclose(g, r, rtol=TOL_ENER_RTOL, atol=0)), "facade K1 energies")
+    print(f"facade: det_metrics at {list(xf.shape)} against its plain version: corr "
+          f"max abs err {err:.3g}")
+    return out
+
+
+def phase_suites(smi_line):
+    """``SMOKE_SUITES`` (72 traces, 384 packets each, SF7-12 at 1 Msps)
+    from the port's generator into ``.suites/`` beside this script, run by
+    the port's ``run_suite(engine="dense")`` on the card, each deleted
+    after it ran: each must reach 384/384."""
+    import os
+
+    from lora_tpu_torch.tools.suite_matrix import MATRIX, run_one
+
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), ".suites", "smoke")
+    os.makedirs(work, exist_ok=True)
+    gen_kw = dict(MATRIX)
+    for suite in SMOKE_SUITES:
+        row = run_one(suite, work, None, "dense", "cuda", **gen_kw[suite])
+        print(f"suite {suite}: {row['passed']}/{row['total']} generate {row['gen_s']} s, "
+              f"decode {row['decode_s']} s ({smi_line})")
+        check(row["passed"] == row["total"] == 384, f"suite {suite}: {row}")
+    os.rmdir(work)
+
+
+def low_snr_captures(kw, snr_db: float, n: int):
+    """tests/test_low_snr.py's captures: one deadbeef packet each, at
+    ``snr_db``."""
+    from lora_tpu_torch import LoRaConfig
+    from lora_tpu_torch.tx.modulator import modulate_frame
+
+    cfg = LoRaConfig(**kw)
+    sps = cfg.samples_per_symbol
+    return [modulate_frame(cfg, DEADBEEF, pad_before=2500 + 137 * k, pad_after=3 * sps,
+                           snr_db=snr_db, seed=k) for k in range(n)]
+
+
+def phase_low_snr(smi_line):
+    """The coherent mode on the card: ``DenseReceiver(low_snr=True)`` at
+    SF7 / 250 ksps, -4 dB (6 packets), and at SF12 / 250 ksps, -16 dB (4
+    packets: the 64M fold budget, two 32M-entry matrices), every packet
+    decoded with no K1 launch (the dechirp metric is a plain product),
+    frames equal to the CPU's (SF7 all, SF12 the first); then the facade's
+    ``low_snr="auto"`` on a weak capture: the second pass is built and
+    decodes it, as on the CPU."""
+    import time
+
+    import torch
+
+    from lora_tpu_torch import DenseReceiver, LoRaConfig, LoRaReceiver
+
+    rx_kw = dict(max_candidates=8, max_symbols=24, sfd_search=12, low_snr=True)
+    for kw, snr, n, n_cpu in ((dict(sf=7, cr=4, samp_rate=250e3, crc=True), -4.0, 6, 6),
+                              (dict(sf=12, cr=4, samp_rate=250e3, crc=True,
+                                    reduced_rate=True), -16.0, 4, 1)):
+        t0 = time.perf_counter()
+        rx = DenseReceiver(LoRaConfig(**kw), **rx_kw)
+        t_build = time.perf_counter() - t0
+        entries = rx._fold_mat[0].numel()
+        xs = low_snr_captures(kw, snr, n)
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        frames = [rx.run(x) for x in xs]
+        t_run = time.perf_counter() - t0
+        n_k = counts()
+        ok = sum(any(f.mac_payload == DEADBEEF for f in fs) for fs in frames)
+        label = f"low_snr SF{kw['sf']} at {snr} dB"
+        check(ok == n, f"{label}: {ok}/{n} decoded")
+        check(n_k["det_metrics"] == 0, f"{label}: K1 launched {n_k}")
+        cpu = DenseReceiver(LoRaConfig(**kw), **rx_kw, device="cpu")
+        for k in range(n_cpu):
+            equal_frames(frames[k], cpu.run(xs[k]), f"{label} capture {k}")
+        print(f"{label}: {ok}/{n} decoded; fold matrices {entries} entries each, built in "
+              f"{t_build:.2f} s; {n} run() {t_run:.3f} s; {n_cpu} equal to the CPU's "
+              f"({smi_line})")
+    kw = dict(samp_rate=250e3, center_freq=FACADE_CENTER, channel_list=[FACADE_CENTER],
+              bandwidth=125e3, sf=7, cr=4, crc=True, engine="dense",
+              disable_channelization=True, low_snr="auto", max_candidates=8,
+              max_symbols=24, sfd_search=12)
+    x = low_snr_captures(dict(sf=7, cr=4, samp_rate=250e3, crc=True), -4.0, 3)[2]
+    fac = LoRaReceiver(**kw)
+    frames = fac.receive(x)
+    check(fac._coherent not in (None, False) and fac._coherent.device.type == "cuda",
+          "low_snr auto: the coherent pass was not built on the card")
+    check([f.mac_payload for f in frames] == [DEADBEEF], "low_snr auto: not decoded")
+    equal_frames(frames, LoRaReceiver(device="cpu", **kw).receive(x), "low_snr auto")
+    print("low_snr auto: the parity gates found nothing, the coherent pass decoded "
+          "the capture, equal to the CPU's")
+
+
+def trace_close(got: dict, want: dict, label: str) -> None:
+    """debug_trace on the card against the CPU: the same keys, shapes and
+    dtypes; integer and boolean keys equal; float keys within rtol 1e-5,
+    atol 1e-6 of the key's largest magnitude (the CPU tests' tolerance),
+    the K1 metric ``corr`` within its kernel's ``TOL_CORR_ATOL``."""
+    import numpy as np
+
+    check(sorted(got) == sorted(want), f"{label}: keys differ")
+    for k, w in want.items():
+        g = got[k]
+        check(g.shape == w.shape and g.dtype == w.dtype, f"{label}: {k} shape/dtype")
+        if np.issubdtype(w.dtype, np.floating):
+            atol = TOL_CORR_ATOL if k == "corr" else 1e-6 * float(np.abs(w).max())
+            check(bool(np.allclose(g, w, rtol=1e-5, atol=atol)),
+                  f"{label}: {k} max diff {float(np.abs(g - w).max())}")
+        else:
+            check(bool(np.array_equal(g, w)), f"{label}: {k} differs")
+
+
+def phase_implicit_debug():
+    """Implicit headers on both engines (SF7, CR 4/5-4/8: the fft engine at
+    250 ksps, the gradient engine at 1 Msps), every packet decoded, frames
+    equal to the CPU's; ``debug_trace`` of both engines on the card
+    against the CPU (:func:`trace_close`), one K1 launch a trace."""
+    import torch
+
+    from lora_tpu_torch import DenseReceiver, LoRaConfig
+    from lora_tpu_torch.tx.modulator import modulate_frame
+
+    payload = bytes.fromhex("cafe0102")
+    rx_kw = dict(max_candidates=2, max_symbols=24, sfd_search=12)
+    for method, rate in (("fft", 250e3), ("gradient", 1e6)):
+        for cr in (1, 2, 3, 4):
+            kw = dict(sf=7, cr=cr, samp_rate=rate, crc=False, implicit=True)
+            cfg = LoRaConfig(**kw)
+            sps = cfg.samples_per_symbol
+            x = modulate_frame(cfg, payload, pad_before=4 * sps, pad_after=8 * sps,
+                               snr_db=40.0, seed=cr)
+            frames = DenseReceiver(cfg, demod_method=method, **rx_kw).run(x)
+            label = f"implicit {method} CR 4/{4 + cr}"
+            check(len(frames) == 1 and frames[0].payload[:4] == payload
+                  and not any(frames[0].payload[4:]), f"{label}: {frames}")
+            equal_frames(frames, DenseReceiver(cfg, demod_method=method, **rx_kw,
+                                               device="cpu").run(x), label)
+        print(f"implicit {method}: CR 4/5-4/8 decoded, equal to the CPU's")
+    cfg = LoRaConfig(sf=7, cr=4, samp_rate=1e6, crc=True)
+    x = modulate_frame(cfg, DEADBEEF, pad_before=3000, pad_after=2 * cfg.samples_per_symbol,
+                       snr_db=30.0, seed=5)
+    for method in ("gradient", "fft"):
+        rx = DenseReceiver(cfg, demod_method=method, max_candidates=2, max_symbols=24)
+        torch.cuda.synchronize()
+        zero_counts()
+        d = rx.debug_trace(x)
+        n = counts()
+        check(n["det_metrics"] == 1, f"debug_trace {method}: launches {n}")
+        check(bool(d["ok"].any()), f"debug_trace {method}: nothing decoded")
+        trace_close(d, DenseReceiver(cfg, demod_method=method, max_candidates=2,
+                                     max_symbols=24, device="cpu").debug_trace(x),
+                    f"debug_trace {method}")
+        print(f"debug_trace {method}: {len(d)} keys equal to the CPU's (floats within "
+              f"tolerance), one det_metrics launch")
+
+
 def main() -> int:
     import torch
 
@@ -2353,9 +2633,17 @@ def main() -> int:
     stamp("phase_stream_plan")
     variants = phase_variant_times(planes[torch.float32], rx.sps)
     stamp("phase_variant_times")
+    facade_launches = phase_facade(smi_line)
+    stamp("phase_facade")
+    phase_suites(smi_line)
+    stamp("phase_suites")
+    phase_low_snr(smi_line)
+    stamp("phase_low_snr")
+    phase_implicit_debug()
+    stamp("phase_implicit_debug")
     phase_kernel_times(rx, planes, launches, worst, receivers, xd_wide, wide_launches,
                        worst_fir, gw, xd_gw, gw_launches, worst_lag, plans, worst_fused,
-                       variants, tools, worst_variants)
+                       variants, tools, worst_variants, facade_launches)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -11,7 +11,15 @@ Ported so far:
   engine (the default at decimation >= 4) and the fft engine, with the
   detection metric as a CUDA kernel (``csrc/det_metrics.cu``), per-channel
   lanes or one global candidate pool, the fft drift pass and the no-fold
-  demod of SF12 at 250 ksps;
+  demod of SF12 at 250 ksps; implicit headers, the coherent ``low_snr``
+  mode, ``debug_trace`` and the complex-input cores (``process_complex``,
+  ``process_pooled``);
+- the receiver facade (``LoRaReceiver``) with the golden engine (the
+  numpy reference model, ``rx.golden``) and the dense engine, channelizing
+  on the card (``channelizer.freq_xlating_fir``, ``channelize_list``); the
+  suite generator and runner (``testsuite``, with ``tx.altmod`` and
+  ``io.sigmf``) and the ``decode-file``, ``gen-suite`` and ``testsuite``
+  commands;
 - the wideband PFB receiver (``WidebandReceiver``) and its polyphase
   channelizer (``PolyphaseChannelizer``), with the branch FIR as a CUDA
   kernel (``csrc/pfb_fir.cu``);
@@ -39,6 +47,10 @@ from .io.frames import Frame, PhyHeader  # noqa: F401
 
 
 def __getattr__(name):  # lazy: the receivers pull in torch
+    if name == "LoRaReceiver":
+        from .receiver import LoRaReceiver
+
+        return LoRaReceiver
     if name == "DenseReceiver":
         from .rx.dense import DenseReceiver
 

@@ -25,6 +25,16 @@ plain version :func:`fused_channelize_planes`), and the factored path
 (:func:`channelize_list_planes_factored`: the mixer rebuilt from two
 small tables, then :func:`_decimating_fir`), the A/B control.
 
+A handful of channels at arbitrary offsets, the receiver facade's case,
+take the plain single-channel pieces: :func:`freq_xlating_fir` (the
+reference channelizer's one ``freq_xlating_fir_filter_ccf``) and
+:func:`channelize_list` / :func:`channelize_list_planes` (every listed
+channel), each a mix by a host-built table (:func:`make_mixer_planes`,
+the phase in float64, mod 1) and a real-tap FIR of each plane, one torch
+``conv1d`` or product (JAX computes these outside any kernel too).
+:func:`fractional_resampler` is the reference's arbitrary-ratio
+resampler, host numpy.
+
 Filter design follows GNU Radio's ``firdes.low_pass`` (Hamming window,
 tap count from the 53 dB attenuation rule), the reference channelizer's
 spec. Host constants are built in float64 and cast once.
@@ -286,6 +296,133 @@ class PolyphaseChannelizer:
         out = w2 @ b.view(M1, 2 * M2, R)                     # [k1, (k2, q), o]
         out = out.view(M1, M2, 2, R)[..., :n_out]
         return out.transpose(0, 1).reshape(self.M, 2, n_out)
+
+
+# -- a few channels at any offsets: the facade's channelizer --------------
+def make_mixer_planes(offsets_hz, samp_rate: float, length: int,
+                      chunk: int = 1 << 20) -> np.ndarray:
+    """The mixer table ``exp(-2j pi f_c/fs n)`` of every channel as float32
+    planes ``[C, 2, length]``: the phase accumulated in float64 and reduced
+    mod 1 cycle before the cast (a float32 ramp loses degrees by a few
+    million samples, a spur the channel filter cannot remove), built
+    ``chunk`` samples at a time so the float64 intermediate stays bounded."""
+    offs = np.asarray(offsets_hz, dtype=np.float64) / samp_rate
+    C = len(offs)
+    out = np.empty((C, 2, length), dtype=np.float32)
+    for s in range(0, length, chunk):
+        n = np.arange(s, min(s + chunk, length), dtype=np.float64)
+        ph = -2.0 * np.pi * ((offs[:, None] * n[None, :]) % 1.0)
+        out[:, 0, s:s + len(n)] = np.cos(ph)
+        out[:, 1, s:s + len(n)] = np.sin(ph)
+    return out
+
+
+def make_mixer_table(offsets_hz, samp_rate: float, length: int) -> np.ndarray:
+    """:func:`make_mixer_planes` as complex64 ``[C, length]``."""
+    planes = make_mixer_planes(offsets_hz, samp_rate, length)
+    return (planes[:, 0] + 1j * planes[:, 1]).astype(np.complex64)
+
+
+def _iq_planes(x, device) -> torch.Tensor:
+    """Float32 planes ``[..., 2, L]``: host complex IQ is moved to
+    ``device`` (``None``: the card) and split there; a complex tensor is
+    split where it lies; a real tensor is taken as planes."""
+    if isinstance(x, torch.Tensor):
+        if x.is_complex():
+            return torch.stack([x.real, x.imag], dim=-2).to(torch.float32)
+        return x.to(torch.float32)
+    from .ops.xfer import pack_iq
+
+    return pack_iq(np.asarray(x, dtype=np.complex64), device=resolve_device(device))
+
+
+def _mix(xf: torch.Tensor, mixer: torch.Tensor) -> torch.Tensor:
+    """Complex product of planes ``[2, L]`` and mixer planes ``[..., 2, L]``."""
+    xr, xi = xf[0], xf[1]
+    mr, mi = mixer[..., 0, :], mixer[..., 1, :]
+    return torch.stack([mr * xr - mi * xi, mr * xi + mi * xr], dim=-2)
+
+
+def freq_xlating_fir(x, taps, center_offset: float, samp_rate: float,
+                     decimation: int, device=None) -> torch.Tensor:
+    """Single-channel frequency-translating FIR decimator, the reference's
+    ``freq_xlating_fir_filter_ccf(decimation, taps, offset, samp_rate)``:
+    mix ``x`` (host complex ``[L]``, or a tensor of complex or planes) down
+    by ``center_offset`` Hz, low-pass, keep every ``decimation``-th sample.
+    ``out[n] = sum_k taps[k] * mixed[n*D + k]``, ``(L - Nt) // D + 1``
+    outputs (the valid convolution with the reversed taps). complex64
+    ``[m]`` on ``x``'s device (host input: ``device``, ``None`` the card).
+    An offset of 0 mixes by exactly 1 and is skipped."""
+    xf = _iq_planes(x, device)
+    if center_offset != 0:
+        mixer = torch.as_tensor(make_mixer_planes([center_offset], samp_rate, xf.shape[-1])[0],
+                                device=xf.device)
+        xf = _mix(xf, mixer)
+    y = _decimating_fir(xf, taps, decimation)
+    return torch.complex(y[0], y[1])
+
+
+def channelize_list_planes(xf: torch.Tensor, taps, mixer_planes,
+                           decimation: int) -> torch.Tensor:
+    """Every channel of a list at once: packed planes ``[2, L]`` float32,
+    the mixer planes ``[C, 2, L]`` (numpy or a tensor; see
+    :func:`make_mixer_planes`) -> channel planes ``[C, 2, m]`` float32,
+    each mixed plane filtered by the real taps and decimated
+    (:func:`_decimating_fir`)."""
+    mixer = torch.as_tensor(mixer_planes, dtype=torch.float32, device=xf.device)
+    return _decimating_fir(_mix(xf, mixer), taps, decimation)
+
+
+def channelize_list(x, taps, offsets_hz, samp_rate: float, decimation: int,
+                    mixers=None, device=None) -> torch.Tensor:
+    """Batched frequency-translating FIR over a list of channel offsets:
+    ``x`` (host complex ``[L]`` or a tensor) -> complex64 ``[C, m]`` on
+    ``x``'s device (host input: ``device``, ``None`` the card). Its cost
+    grows with the channel count: a dense grid wants the polyphase
+    channelizer. ``mixers``: an optional precomputed complex ``[C, L]``
+    table; by default the host builds it in float64
+    (:func:`make_mixer_planes`), where JAX's default ramps the phase in
+    float32 on the device, which its own note says degrades past ~100k
+    samples."""
+    xf = _iq_planes(x, device)
+    L = xf.shape[-1]
+    if mixers is None:
+        mp = make_mixer_planes(offsets_hz, samp_rate, L)
+    else:
+        m = np.asarray(mixers.cpu() if isinstance(mixers, torch.Tensor) else mixers,
+                       np.complex64)
+        mp = np.stack([m.real, m.imag], axis=1)
+    y = channelize_list_planes(xf, taps, mp, decimation)
+    return torch.complex(y[:, 0], y[:, 1])
+
+
+def fractional_resampler(x, ratio: float, ntaps: int = 8,
+                         nphases: int = 128) -> np.ndarray:
+    """Arbitrary-ratio resampler (reference ``fractional_resampler_cc``,
+    python/lora_receiver.py:60, GNU Radio's MMSE 8-tap interpolating FIR):
+    ``out[n] = x(n * ratio)`` through a bank of ``nphases`` Hamming-windowed
+    sinc filters of ``ntaps`` taps, the phase chosen by the fractional
+    sample position; ``ratio > 1`` decimates. Host numpy: capture
+    pre-conditioning, off the card's path."""
+    x = np.asarray(x)
+    half = ntaps // 2
+    phases = np.arange(nphases) / nphases
+    k = np.arange(-half + 1, half + 1, dtype=np.float64)  # ntaps offsets
+    t = k[None, :] - phases[:, None]                       # [nphases, ntaps]
+    sinc = np.sinc(t)
+    win = 0.54 + 0.46 * np.cos(np.pi * t / half)
+    bank = (sinc * win).astype(np.float64)
+    bank /= bank.sum(axis=1, keepdims=True)                # unit DC gain
+
+    n_out = int((len(x) - ntaps) / ratio)
+    pos = np.arange(n_out) * ratio
+    base = np.floor(pos).astype(np.int64)
+    frac = pos - base
+    phase = np.minimum((frac * nphases + 0.5).astype(np.int64), nphases - 1)
+    idx = base[:, None] + k[None, :].astype(np.int64)      # [n_out, ntaps]
+    idx = np.clip(idx, 0, len(x) - 1)
+    out = np.sum(x[idx] * bank[phase], axis=1)
+    return out.astype(x.dtype)
 
 
 # -- the plan channelizer: host tables (numpy, float64, cast once) --------

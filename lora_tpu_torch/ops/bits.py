@@ -70,6 +70,23 @@ def extract_data_only(codewords):
     return select_bits(codewords, EXTRACT_DATA_INDICES)
 
 
+def swap_nibbles(x):
+    """Swap the two nibbles of each byte (reference utilities.h:274-278)."""
+    return ((x & 0x0F) << 4) | ((x & 0xF0) >> 4)
+
+
+def pack_nibbles_to_bytes(nibbles, high_first: bool):
+    """Pairs of nibbles ``[..., 2n]`` -> bytes ``[..., n]`` (numpy).
+    ``high_first``: ``(n[2i] << 4) | n[2i+1]`` (the header's order, as
+    liquid-dsp's ``fec_decode`` packs); else ``(n[2i+1] << 4) | n[2i]``
+    (the payload's, after the reference's ``swap_nibbles``). The count
+    must be even."""
+    n = nibbles.reshape(nibbles.shape[:-1] + (-1, 2))
+    if high_first:
+        return ((n[..., 0] << 4) | n[..., 1]).astype(nibbles.dtype)
+    return ((n[..., 1] << 4) | n[..., 0]).astype(nibbles.dtype)
+
+
 def unpack_bytes_to_nibbles(data, high_first: bool):
     """uint8 numpy ``[..., n]`` -> nibbles ``[..., 2n]`` (tx side)."""
     import numpy as np

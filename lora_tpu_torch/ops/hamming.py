@@ -57,3 +57,8 @@ HAMMING84_ENCODE_LUT, HAMMING84_DECODE_LUT = _build_tables()
 def hamming84_encode(nibbles) -> np.ndarray:
     """nibble array -> codeword byte array (tx side, numpy)."""
     return HAMMING84_ENCODE_LUT[np.asarray(nibbles, dtype=np.uint8) & 0x0F]
+
+
+def hamming84_decode(codewords) -> np.ndarray:
+    """codeword byte array -> corrected data nibble array (numpy)."""
+    return HAMMING84_DECODE_LUT[np.asarray(codewords, dtype=np.uint8)]

@@ -187,12 +187,19 @@ class PlanGateway:
         """Packed wideband planes ``[2, L]`` on the gateway's device ->
         ``{sf: PooledResult [pool]}``. The channel planes are computed once
         a call, cast to ``plane_dtype`` and made contiguous once, and
-        shared by one multi-lag detection pass and every SF's stage."""
+        shared by one multi-lag detection pass and every SF's stage. A bank
+        with a ``low_snr`` receiver skips the shared pass (the multi-lag
+        kernel gives the autocorrelation, not the dechirp metric): each SF
+        detects on its own, as in JAX's gateway."""
         cp = self.channel_planes(xf)
         if self.plane_dtype is not None:
             cp = cp.to(self.plane_dtype)
         cp = cp.contiguous()
-        metrics = multi_sf_detection_metrics(cp, {sf: rx.sps for sf, rx in self.rxs.items()})
+        if any(rx.low_snr for rx in self.rxs.values()):
+            metrics = dict.fromkeys(self.sfs)
+        else:
+            metrics = multi_sf_detection_metrics(
+                cp, {sf: rx.sps for sf, rx in self.rxs.items()})
         return {sf: rx.process_pooled_planes(cp, self.pool, metrics=metrics[sf])
                 for sf, rx in self.rxs.items()}
 

@@ -10,6 +10,11 @@ CPU path and the yardstick the kernel is held to on the card, for both of
 its variants (``"pp"`` and the staged ``"tile"`` kernel).
 :func:`detection_metrics_wm_planes` is the same metric on window-major
 IQ, the plain version of the window-major kernel.
+:func:`detection_metrics` takes complex IQ instead of planes (the
+complex-input cores of the dense receiver), and
+:func:`detection_metrics_dechirp` is the coherent low-SNR metric, one
+fold-DFT product over every window (no kernel: JAX computes it outside
+any Pallas kernel too).
 
 Several spreading factors share one pass: every SF's symbol is a whole
 number of the smallest SF's, so :func:`lag_rows_planes` (the plain
@@ -55,6 +60,67 @@ def detection_metrics_planes(xf: torch.Tensor, sps: int):
     corr = torch.where(ok, mag / torch.where(ok, denom, torch.ones_like(denom)),
                        torch.zeros_like(mag))
     return corr, e1, e2
+
+
+def detection_metrics(x: torch.Tensor, sps: int):
+    """:func:`detection_metrics_planes` on complex IQ ``[..., L]``
+    (complex64): the windows' conjugate dots and energies, ``(corr, e1,
+    e2)`` float32 ``[..., K]``, ``K = L//sps - 1``."""
+    L = x.shape[-1]
+    K = L // sps - 1
+    lead = x[..., :(K + 1) * sps]
+    lag_prod = lead[..., :K * sps] * torch.conj(lead[..., sps:])
+    mag2 = lead.real ** 2 + lead.imag ** 2
+    dots = lag_prod.reshape(lag_prod.shape[:-1] + (K, sps)).sum(-1)
+    eners = mag2.reshape(mag2.shape[:-1] + (K + 1, sps)).sum(-1)
+    e1 = eners[..., :K]
+    e2 = eners[..., 1:]
+    denom = torch.sqrt(e1 * e2)
+    ok = denom > 0
+    corr = torch.where(ok, dots.abs() / torch.where(ok, denom, torch.ones_like(denom)),
+                       torch.zeros_like(denom))
+    return corr.to(torch.float32), e1.to(torch.float32), e2.to(torch.float32)
+
+
+def detection_metrics_dechirp(xf: torch.Tensor, sps: int, fold_mat):
+    """Coherent low-SNR preamble detection on packed planes ``[..., 2, L]``.
+
+    Each symbol-stride window is dechirped and folded by one fold-DFT
+    product for the whole block (``fold_mat = (Er, Ei)`` ``[sps,
+    n_bins]``, :func:`~lora_tpu_torch.ops.demod.make_fold_dft`), a
+    ``10*log10(sps)`` processing gain the autocorrelation metric lacks.
+    The score of window ``k`` is the smaller of the folded-power
+    peak/mean ratios of windows ``k`` and ``k+1``, where their argmax bins
+    agree to within one (repeated preamble upchirps fold to one tone;
+    noise argmaxes are uniform), else 0. Returns ``(score, e1, e2)``
+    float32 ``[..., K]`` with :func:`detection_metrics_planes`'s window
+    grid and energies; the noise baseline of the score is ``ln(n_bins) +
+    0.577``. Run it under
+    :func:`~lora_tpu_torch.device.full_f32_matmul`: TF32 would move the
+    scores."""
+    er, ei = fold_mat
+    n_bins = er.shape[-1]
+    L = xf.shape[-1]
+    K1 = L // sps
+    K = K1 - 1
+    xf = xf.to(torch.float32)
+    lead = xf.shape[:-2]
+    r = xf[..., 0, :K1 * sps].reshape(lead + (K1, sps))
+    i = xf[..., 1, :K1 * sps].reshape(lead + (K1, sps))
+    fr = r @ er - i @ ei
+    fi = r @ ei + i @ er
+    p = fr * fr + fi * fi                       # [..., K1, n_bins]
+    peak = p.amax(dim=-1)
+    mean = p.mean(dim=-1)
+    bins = torch.argmax(p, dim=-1)
+    ratio = peak / torch.clamp(mean, min=1e-30)
+    d = (bins[..., :-1] - bins[..., 1:]) % n_bins
+    dist = torch.minimum(d, n_bins - d)
+    score = torch.where(dist <= 1, torch.minimum(ratio[..., :-1], ratio[..., 1:]),
+                        torch.zeros_like(ratio[..., 1:]))
+    e = (r * r + i * i).sum(-1)                 # [..., K1]
+    return (score.to(torch.float32), e[..., :K].to(torch.float32),
+            e[..., 1:].to(torch.float32))
 
 
 def detection_metrics_wm_planes(xw: torch.Tensor):

@@ -61,6 +61,21 @@ def interleave_block(rows: np.ndarray, ppm: int, n_words: int) -> np.ndarray:
     return words
 
 
+def deinterleave_block(words: np.ndarray, ppm: int) -> np.ndarray:
+    """The reference's diagonal deinterleaver (:535-565), numpy: int
+    ``[..., n_words]`` -> uint8 rows ``[..., ppm]`` with row x bit i = bit
+    x of ``rotl(word_i, i, ppm)``."""
+    n_words = words.shape[-1]
+    rot = np.stack([bits.rotl(words[..., i], i, ppm) for i in range(n_words)], axis=-1)
+    rows = np.zeros(words.shape[:-1] + (ppm,), dtype=np.uint8)
+    for x in range(ppm):
+        col = np.zeros(words.shape[:-1], dtype=np.uint16)
+        for i in range(n_words):
+            col |= ((rot[..., i] >> x) & 1).astype(np.uint16) << i
+        rows[..., x] = col.astype(np.uint8)
+    return rows
+
+
 def encode_frame_symbols(config: LoRaConfig, payload: bytes) -> np.ndarray:
     """Payload bytes -> data symbol bins (int array).
 

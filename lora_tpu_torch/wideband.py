@@ -161,9 +161,11 @@ class MultiSFWidebandReceiver(_Channelized):
     come from one multi-lag pass over the planes (every SF's symbol is a
     whole number of the smallest SF's), where each SF would otherwise read
     the planes once; ``False`` runs the per-SF detection instead (the A/B
-    control). A candidate raised on the wrong SF's grid fails that SF's
-    SFD search or header decode, so :meth:`run` needs no cross-SF
-    arbitration.
+    control). ``low_snr`` receivers use the dechirp metric, which the
+    multi-lag pass does not give, so any of them opts the whole bank out of
+    the shared pass, as JAX's gateway does. A candidate raised on the wrong
+    SF's grid fails that SF's SFD search or header decode, so :meth:`run`
+    needs no cross-SF arbitration.
 
     ``chan_config`` carries everything but the SF; ``sfs`` lists the SFs
     (duplicates dropped, order kept; none raises ``ValueError``).
@@ -206,13 +208,14 @@ class MultiSFWidebandReceiver(_Channelized):
 
     def process_planes(self, xf: torch.Tensor) -> Dict[int, object]:
         """Packed wideband planes ``[2, L]`` on the receiver's device ->
-        ``{sf: PooledResult [pool]}``. With ``shared_detection`` the
+        ``{sf: PooledResult [pool]}``. With the shared detection the
         multi-lag detection and every SF's Phase B read the channelizer's
         planes where they lie (a view with a padded row pitch): no copy.
-        The per-SF detection reads contiguous planes, so that path copies
-        them once for all SFs."""
+        The per-SF detection (``shared_detection=False``, or a ``low_snr``
+        bank) reads contiguous planes, so that path copies them once for
+        all SFs."""
         cp = self._channel_planes(xf)
-        if self.shared_detection:
+        if self.shared_detection and not any(rx.low_snr for rx in self.rxs.values()):
             metrics = multi_sf_detection_metrics(
                 cp, {sf: rx.sps for sf, rx in self.rxs.items()})
         else:

@@ -15,7 +15,13 @@ Held to:
   side of a bf16 tie); the two-stage split rounds an intermediate to bf16
   as JAX does, and a 1-ulp flip there moves an output by up to
   ``2^-10 * max|want|``, which is its added allowance;
-- the complex path within ``1e-6 * max|want|``.
+- the complex path within ``1e-6 * max|want|``;
+- the facade's single-channel pieces (``freq_xlating_fir``,
+  ``channelize_list``, ``channelize_list_planes``, each held to JAX's on
+  the same mixer table): rtol 1e-5, atol ``1e-6 * max|want|`` (float32
+  sums of the real taps in another order); the host tables
+  (``make_mixer_planes``, ``make_mixer_table``) and
+  ``fractional_resampler`` equal.
 """
 
 import numpy as np
@@ -236,3 +242,61 @@ def test_load_channelizer_installs_jax_state():
         load_channelizer(p, j.h_poly[:, :32])
     with pytest.raises(ValueError, match="expected"):
         load_channelizer(p, j.h_poly, dft=(np.zeros((M, M)), np.zeros((M, 8))))
+
+
+# ------------------------------------------- the facade's channelizers
+def _close(got, want):
+    want = np.asarray(want)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6 * np.abs(want).max())
+
+
+def _iq(L, seed=5):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=L) + 1j * rng.normal(size=L)).astype(np.complex64)
+
+
+@pytest.mark.parametrize("L,chunk", [(5000, 1 << 20), (5003, 1024)])
+def test_mixer_tables_equal_jax(L, chunk):
+    offs = [-312.5e3, 0.0, 125e3, 433.1e3]
+    np.testing.assert_array_equal(ch.make_mixer_planes(offs, 1e6, L, chunk=chunk),
+                                  jch.make_mixer_planes(offs, 1e6, L, chunk=chunk))
+    np.testing.assert_array_equal(ch.make_mixer_table(offs, 1e6, L),
+                                  jch.make_mixer_table(offs, 1e6, L))
+
+
+@pytest.mark.parametrize("D", [1, 2, 4, 8])
+@pytest.mark.parametrize("offset", [0.0, 200e3, -137.5e3])
+def test_freq_xlating_fir_matches_jax(D, offset):
+    x = _iq(30_011)
+    taps = ch.lora_channel_taps(1e6, 125e3)
+    got = ch.freq_xlating_fir(x, taps, offset, 1e6, D, device="cpu")
+    assert got.dtype == torch.complex64
+    _close(got.numpy(), jch.freq_xlating_fir(x, taps, offset, 1e6, D))
+    # a complex tensor or planes give the same stream
+    np.testing.assert_array_equal(
+        ch.freq_xlating_fir(torch.from_numpy(x), taps, offset, 1e6, D).numpy(), got.numpy())
+
+
+@pytest.mark.parametrize("D", [1, 4])
+def test_channelize_list_matches_jax(D):
+    x = _iq(20_000, seed=6)
+    taps = ch.lora_channel_taps(1e6, 125e3)
+    offs = [-300e3, 0.0, 250e3]
+    mixers = jch.make_mixer_table(offs, 1e6, len(x))
+    want = np.asarray(jch.channelize_list(x, taps, offs, 1e6, D, mixers=mixers))
+    _close(ch.channelize_list(x, taps, offs, 1e6, D, mixers=mixers, device="cpu").numpy(), want)
+    # the default table is the same float64 one
+    _close(ch.channelize_list(x, taps, offs, 1e6, D, device="cpu").numpy(), want)
+    xf = pack_iq(x, device="cpu")
+    mp = ch.make_mixer_planes(offs, 1e6, len(x))
+    got = ch.channelize_list_planes(xf, taps, mp, D)
+    _close(got.numpy(), jch.channelize_list_planes(jnp.asarray(xf.numpy()), taps,
+                                                   jnp.asarray(mp), D))
+
+
+def test_fractional_resampler_equals_jax():
+    x = _iq(40_000, seed=8)
+    for ratio in (1.024, 1.0 / 1.024, 1.0 + 30e-6, 2.5):
+        np.testing.assert_array_equal(ch.fractional_resampler(x, ratio),
+                                      jch.fractional_resampler(x, ratio))

@@ -135,8 +135,8 @@ def test_gateway_udp_sink(tmp_path, capsys):
 
 def test_gateway_shell_entry_and_errors(tmp_path):
     """``python -m lora_tpu_torch.cli gateway``: the frame lines from the
-    shell; a missing file exits 2; ``--implicit`` raises the receiver's
-    NotImplementedError."""
+    shell; a missing file exits 2; ``--implicit`` builds implicit-header
+    receivers and decodes the capture with them."""
     build, placements, L, args = CASES["plan"]
     f = build(tmp_path / "capture.cf32", placements, L)
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -148,5 +148,4 @@ def test_gateway_shell_entry_and_errors(tmp_path):
     assert len(lines) == 1 and lines[0].split()[:3] == ["ch0", "sf7", "868100000Hz"]
     assert "aa55" in "".join(lines[0].split()[3:])
     assert main(["gateway", str(tmp_path / "missing.cf32"), "--device", "cpu"]) == 2
-    with pytest.raises(NotImplementedError, match="implicit"):
-        main(["gateway", f, *args, "--implicit", "--device", "cpu"])
+    assert main(["gateway", f, *args, "--implicit", "--device", "cpu"]) == 0

@@ -1,7 +1,9 @@
 """The port on the card: each kernel against its plain torch version, the
 dense receiver (both engines), wideband, multi-SF gateway and plan
 gateway receivers on the card against the port on the CPU, and the
-kernel studies.
+kernel studies; the receiver facade, implicit headers, ``low_snr`` and
+``debug_trace`` against the CPU, and (``slow``) the 13-suite accuracy
+matrix on the card (``LORA_TORCH_REPORTS=DIR`` keeps its reports).
 
 Every test here needs a CUDA device and skips without one. The file
 imports neither JAX nor the JAX package, so it runs where only torch is
@@ -667,3 +669,109 @@ def test_plan_stream_on_card_matches_cpu(cuda_device):
         out[str(dev)] = [(f.channel, f.tap_header.sf, f.sample_index, f.payload) for f in frames]
     assert len(out["cpu"]) == 3
     assert out[str(cuda_device)] == out["cpu"]
+
+
+# ------------------------------------- the facade, implicit, low_snr, debug
+def _frames_equal(fg, fc):
+    """Card against CPU: header bytes, payload, channel, sample index and
+    frequency equal; cfo within 2 Hz, snr rtol 1e-4 (as chip_smoke.py)."""
+    assert len(fg) == len(fc) > 0
+    for a, b in zip(fg, fc):
+        assert (a.phy_header.to_bytes(), a.payload, a.channel, a.sample_index,
+                a.tap_header.frequency) == (b.phy_header.to_bytes(), b.payload, b.channel,
+                                            b.sample_index, b.tap_header.frequency)
+        assert abs(a.cfo - b.cfo) <= 2.0 and abs(a.snr - b.snr) <= 1e-4 * abs(b.snr)
+
+
+@pytest.mark.parametrize("n_ch", [1, 3])
+def test_facade_on_card_matches_cpu(cuda_device, n_ch):
+    """The dense facade at SF7, 1 Msps, decimation 4 (the fft engine):
+    every packet, one K1 launch a receive(), the CPU's frames."""
+    from lora_tpu_torch import LoRaReceiver
+
+    offs = (-300e3, 0.0, 250e3)
+    cfg = LoRaConfig(sf=7, cr=4, samp_rate=1e6, crc=True)
+    rng = np.random.default_rng(n_ch)
+    L = 300_000
+    x = (0.02 * (rng.normal(size=L) + 1j * rng.normal(size=L))).astype(np.complex64)
+    for c, off in enumerate(offs):
+        pkt = modulate_frame(cfg, bytes([0xF0 + c]) + bytes.fromhex("deadbeef"), snr_db=None,
+                             seed=c)
+        pos = 10_000 + 60_000 * c
+        t = np.arange(pos, pos + len(pkt), dtype=np.float64)
+        x[pos:pos + len(pkt)] += (pkt * np.exp(2j * np.pi * off / 1e6 * t)).astype(np.complex64)
+    kw = dict(samp_rate=1e6, center_freq=868.1e6,
+              channel_list=[868.1e6 + o for o in offs[:n_ch]], bandwidth=125e3, sf=7,
+              decimation=4, engine="dense", max_candidates=4, max_symbols=24)
+    rx = LoRaReceiver(**kw)
+    assert rx.device.type == "cuda"
+    before = detection_metrics_kernel.launches
+    frames = rx.receive(x)
+    assert detection_metrics_kernel.launches == before + 1
+    assert sorted(f.channel for f in frames) == list(range(n_ch))
+    _frames_equal(frames, LoRaReceiver(device="cpu", **kw).receive(x))
+
+
+@pytest.mark.parametrize("method,rate", [("fft", 250e3), ("gradient", 1e6)])
+@pytest.mark.parametrize("cr", [1, 4])
+def test_implicit_on_card_matches_cpu(cuda_device, method, rate, cr):
+    cfg = LoRaConfig(sf=7, cr=cr, samp_rate=rate, crc=False, implicit=True)
+    sps = cfg.samples_per_symbol
+    x = modulate_frame(cfg, b"\xca\xfe\x01\x02", pad_before=4 * sps, pad_after=8 * sps,
+                       snr_db=40.0, seed=cr)
+    kw = dict(demod_method=method, max_candidates=2, max_symbols=24)
+    frames = DenseReceiver(cfg, **kw).run(x)
+    assert frames[0].payload[:4] == b"\xca\xfe\x01\x02"
+    _frames_equal(frames, DenseReceiver(cfg, **kw, device="cpu").run(x))
+
+
+@pytest.mark.parametrize("kw,snr", [(dict(sf=7, cr=4, samp_rate=250e3, crc=True), -4.0),
+                                    (dict(sf=12, cr=4, samp_rate=250e3, crc=True,
+                                          reduced_rate=True), -16.0)],
+                         ids=["sf7", "sf12-64M-budget"])
+def test_low_snr_on_card_matches_cpu(cuda_device, kw, snr):
+    cfg = LoRaConfig(**kw)
+    x = modulate_frame(cfg, bytes.fromhex("deadbeef"), pad_before=2500,
+                       pad_after=3 * cfg.samples_per_symbol, snr_db=snr, seed=1)
+    rkw = dict(max_candidates=8, max_symbols=24, sfd_search=12, low_snr=True)
+    before = detection_metrics_kernel.launches
+    frames = DenseReceiver(cfg, **rkw).run(x)
+    assert detection_metrics_kernel.launches == before     # the dechirp metric: no kernel
+    assert [f.mac_payload for f in frames] == [bytes.fromhex("deadbeef")]
+    _frames_equal(frames, DenseReceiver(cfg, **rkw, device="cpu").run(x))
+
+
+@pytest.mark.parametrize("method", ["gradient", "fft"])
+def test_debug_trace_on_card_matches_cpu(cuda_device, method):
+    """Integer and boolean keys equal; float keys rtol 1e-5, atol 1e-6 of
+    the key's largest magnitude (K1's ``corr`` atol 2e-5)."""
+    cfg = LoRaConfig(sf=7, cr=4, samp_rate=1e6, crc=True)
+    x = modulate_frame(cfg, bytes.fromhex("deadbeef"), pad_before=3000,
+                       pad_after=2 * cfg.samples_per_symbol, snr_db=30.0, seed=5)
+    kw = dict(demod_method=method, max_candidates=2, max_symbols=24)
+    got = DenseReceiver(cfg, **kw).debug_trace(x)
+    want = DenseReceiver(cfg, **kw, device="cpu").debug_trace(x)
+    assert sorted(got) == sorted(want) and got["ok"].any()
+    for k, w in want.items():
+        assert got[k].shape == w.shape and got[k].dtype == w.dtype, k
+        if np.issubdtype(w.dtype, np.floating):
+            atol = 2e-5 if k == "corr" else 1e-6 * np.abs(w).max()
+            np.testing.assert_allclose(got[k], w, rtol=1e-5, atol=atol, err_msg=k)
+        else:
+            np.testing.assert_array_equal(got[k], w, err_msg=k)
+
+
+@pytest.mark.slow
+def test_suite_matrix_on_card(cuda_device, tmp_path):
+    """The 13 suites of the JAX package's accuracy matrix (its dense
+    column, docs/test-results/README.md), generated by the port and run by
+    its dense engine on the card: each at 100 %. Reports and index go to
+    ``$LORA_TORCH_REPORTS`` when set (else a temporary directory)."""
+    import os
+
+    from lora_tpu_torch.tools.suite_matrix import MATRIX, run_matrix
+
+    reports = os.environ.get("LORA_TORCH_REPORTS", str(tmp_path / "reports"))
+    rows = run_matrix(reports=reports, engine="dense", device="cuda")
+    assert [r["suite"] for r in rows] == [s for s, _ in MATRIX]
+    assert all(r["passed"] == r["total"] > 0 for r in rows), rows

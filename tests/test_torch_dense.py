@@ -164,8 +164,18 @@ def test_pack_unpack_roundtrip():
     (dict(sf=7, samp_rate=250e3), dict(low_snr=True)),
 ])
 def test_unported_configurations_raise(kw, extra):
-    with pytest.raises(NotImplementedError):
-        DenseReceiver(LoRaConfig(**kw), **extra, device="cpu")
+    """Implicit headers and low_snr, refused until they were ported, build
+    as JAX's receivers do (the same engine and mode); what JAX refuses (the
+    coherent mode on the gradient engine) the port refuses alike."""
+    rx = DenseReceiver(LoRaConfig(**kw), **extra, device="cpu")
+    jrx = JDenseReceiver(JConfig(**kw), **extra)
+    assert (rx.method, rx.low_snr, rx.low_snr_threshold) == \
+        (jrx.method, jrx.low_snr, jrx.low_snr_threshold)
+    bad = dict(extra, low_snr=True, demod_method="gradient")
+    with pytest.raises(ValueError):
+        JDenseReceiver(JConfig(**kw), **bad)
+    with pytest.raises(ValueError):
+        DenseReceiver(LoRaConfig(**kw), **bad, device="cpu")
 
 
 def test_load_tables_checks_geometry(jrx):

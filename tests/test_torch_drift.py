@@ -178,6 +178,20 @@ def test_drift_pass_sf12_matches_jax(ppm, tables):
     _assert_frames_equal(got, want)
 
 
+def test_sf13_no_fold_matches_jax():
+    """SF13 at 250 ksps (sps * n_bins = 128M: no fold matrices, the
+    dechirp FFT and table slices; the drift pass on): a clean packet
+    decodes to JAX's frame."""
+    kw = dict(sf=13, cr=4, samp_rate=250e3, crc=True, reduced_rate=True)
+    stream = _stream(JConfig(**kw), 0.0)
+    rx_kw = dict(max_candidates=2, max_symbols=24, demod_method="fft")
+    rx = DenseReceiver(LoRaConfig(**kw), **rx_kw, device="cpu")
+    assert rx._fold_mat is None and rx.fft_drift_pass
+    got = rx.run(stream)
+    assert [f.mac_payload for f in got] == [PAYLOAD]
+    _assert_frames_equal(got, JDenseReceiver(JConfig(**kw), **rx_kw).run(stream))
+
+
 def test_sf12_without_drift_pass_fails_as_jax():
     stream = _stream(JConfig(**SF12), 30.0)
     kw = dict(max_candidates=4, max_symbols=48, demod_method="fft", fft_drift_pass=False)

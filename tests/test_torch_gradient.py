@@ -204,6 +204,19 @@ def test_gradient_run_and_pooled_match_jax(case):
                                       np.asarray(getattr(w_pool, f))[valid])
 
 
+@pytest.mark.parametrize("kw", [dict(sf=10, cr=3, samp_rate=1e6, crc=True),
+                                dict(sf=11, cr=4, samp_rate=1e6, crc=True, reduced_rate=True)],
+                         ids=["sf10", "sf11-reduced"])
+def test_gradient_engine_high_sf_matches_jax(kw):
+    """The gradient engine at SF10 and at SF11 with reduced rate (1 Msps,
+    no fold matrices at SF11): the packets that fit a 90-symbol block."""
+    x, n = make_block(kw, 90)
+    assert n >= 1
+    jrx = JDenseReceiver(JConfig(**kw), demod_method="gradient", **RX)
+    rx = DenseReceiver(LoRaConfig(**kw), demod_method="gradient", **RX, device="cpu")
+    assert_same(rx.process(x), jax.device_get(jrx.process(x)), n_expected=n)
+
+
 def test_reference_sliding_sync_matches_jax():
     kw, n_sym, _ = CASES["sf7"]
     x, n = make_block(kw, n_sym)
@@ -228,5 +241,11 @@ def test_engine_selection():
     assert DenseReceiver(LoRaConfig(**sf7, samp_rate=250e3), device="cpu").method == "fft"
     with pytest.raises(ValueError, match="demod_method"):
         DenseReceiver(LoRaConfig(**sf7, samp_rate=1e6), demod_method="nope", device="cpu")
-    with pytest.raises(NotImplementedError):
-        DenseReceiver(LoRaConfig(**sf7, samp_rate=1e6), device="cpu").debug_trace(None)
+    # implicit headers and the coherent mode route "auto" to the fft engine
+    assert DenseReceiver(LoRaConfig(**sf7, samp_rate=1e6), low_snr=True,
+                         device="cpu").method == "fft"
+    assert DenseReceiver(LoRaConfig(sf=7, cr=4, crc=False, implicit=True, samp_rate=1e6),
+                         device="cpu").method == "fft"
+    with pytest.raises(ValueError, match="fft engine"):
+        DenseReceiver(LoRaConfig(**sf7, samp_rate=1e6), demod_method="gradient",
+                      low_snr=True, device="cpu")

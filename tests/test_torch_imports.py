@@ -29,7 +29,11 @@ def test_import_leaves_jax_and_lora_tpu_out():
         "    importlib.import_module(m.name)\n"
         "lora_tpu_torch.DenseReceiver, lora_tpu_torch.WidebandReceiver\n"
         "lora_tpu_torch.PolyphaseChannelizer, lora_tpu_torch.MultiSFWidebandReceiver\n"
-        "lora_tpu_torch.PlanGateway\n"
+        "lora_tpu_torch.PlanGateway, lora_tpu_torch.LoRaReceiver\n"
+        "from lora_tpu_torch.rx.golden import GoldenReceiver\n"
+        "from lora_tpu_torch.testsuite import generate_suite, run_suite\n"
+        "from lora_tpu_torch.tx.altmod import modulate_frame_alt\n"
+        "from lora_tpu_torch.io.sigmf import read_trace, write_trace\n"
         "from lora_tpu_torch.stream import StreamingReceiver, WidebandStreamingReceiver\n"
         "from lora_tpu_torch.io.udp import MessageSocketSink\n"
         "from lora_tpu_torch.io.sinks import MessageFileSink\n"
@@ -114,6 +118,7 @@ def test_wrapper_refuses_bad_geometry(shape, sps):
 def test_package_exports():
     from lora_tpu_torch.channelizer import PolyphaseChannelizer
     from lora_tpu_torch.plans import PlanGateway
+    from lora_tpu_torch.receiver import LoRaReceiver
     from lora_tpu_torch.wideband import MultiSFWidebandReceiver, WidebandReceiver
 
     assert lora_tpu_torch.LoRaConfig is LoRaConfig
@@ -121,5 +126,6 @@ def test_package_exports():
     assert lora_tpu_torch.MultiSFWidebandReceiver is MultiSFWidebandReceiver
     assert lora_tpu_torch.PolyphaseChannelizer is PolyphaseChannelizer
     assert lora_tpu_torch.PlanGateway is PlanGateway
+    assert lora_tpu_torch.LoRaReceiver is LoRaReceiver
     with pytest.raises(AttributeError):
         lora_tpu_torch.NoSuchReceiver

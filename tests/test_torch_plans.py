@@ -385,6 +385,26 @@ def test_us915_plan_gateway_run_matches_jax():
     assert_frames_equal(got, jplans.PlanGateway("US915", center, rate, **kw).run(x))
 
 
+def test_au915_plan_gateway_run_matches_jax():
+    """The AU915 plan (US915's raster from 915.2 MHz) at 918.0 MHz, 8 Msps:
+    the channels in band, three SF7 packets, one with CFO and noise."""
+    center, rate = 918.0e6, 8e6
+    sps7 = int(2 ** 7 * rate / 125e3)
+    placements = [(7, 915.8e6, b"\x44", 2 * sps7, 0.0, None),
+                  (7, 917.2e6, b"\x55\x56", 3 * sps7, -250.0, 12.0),
+                  (7, 920.0e6, b"\x66", 5 * sps7, 0.0, None)]
+    x = _capture(center, rate, placements, 44 * sps7, 13)
+    kw = dict(KW, sfs=(7,))
+    gw = PlanGateway("AU915", center, rate, device="cpu", **kw)
+    jgw = jplans.PlanGateway("AU915", center, rate, **kw)
+    assert gw.channels == jgw.channels and gw.decim == jgw.decim == 32
+    got = gw.run(x)
+    decoded = {(f.tap_header.sf, f.tap_header.frequency): f.payload for f in got}
+    for sf, f_abs, payload, *_ in placements:
+        assert decoded[(sf, int(f_abs))][:len(payload)] == payload
+    assert_frames_equal(got, jgw.run(x))
+
+
 def test_fused_and_factored_decode_the_same_frames():
     """tests/test_plan_stream.py:155-177: the fused channelizer against the
     factored one, end to end."""
