@@ -91,13 +91,32 @@ Phases, each of which passes or exits non-zero:
    fold budget), no K1 launch, frames equal to the CPU's, and the facade's
    ``low_snr="auto"`` second pass; (d) implicit headers on both engines
    (CR 4/5-4/8) and ``debug_trace`` of both engines against the CPU;
-13. each kernel's time beside its bound, its plain version's time and a
+13. the parity engine on the card (``phase_parity``):
+   ``LoRaReceiver(engine="parity")`` on the facade capture, one channel and
+   three in one batched loop, 6/6 and 18/18, frames equal to the golden
+   facade's and the CPU's, at most one host sync a loop step, the steps,
+   device kernels a step and the median ``receive()``; ``short_sim``
+   through ``run_suite(engine="parity")`` (384/384); the clamped demod
+   buffer's final state against the CPU's; the SF13 sliding sync against
+   the CPU's, with its device memory;
+14. flowgraphs on the card (``phase_flowgraph``), YAML written to a
+   temporary directory and run by ``run_flowgraph`` or the ``flowgraph``
+   command, counts zeroed just before each: the off-grid route (the
+   facade capture's three channels, the card's mixer bank; 18/18, the
+   facade's dense frames, the file sink's bytes), the PFB-grid route (M =
+   64 at 16 Msps, 8 channels; one ``pfb_fir`` launch a block), the EU868
+   plan gateway on stream (c)'s capture (its frames), one channel on the
+   parity and golden engines (equal frames), a message-only graph on
+   127.0.0.1, ``blocks`` (12 descriptors) and ``analyze --max-buffers 2``;
+15. each kernel's time beside its bound, its plain version's time and a
    library call's time where one computes the same function (the
    polyphase FIR at the wideband shape, float32 and bf16 out, and at the
    gateway's; the gateway's numbers also go into its ``kernels`` entry;
    the multi-lag kernel on the gateway's pitched view and at the US915
    plan's planes, whose numbers go into its entry's ``plan`` object; K1's
-   launches a facade ``receive()`` go into its entry's ``facade`` object).
+   launches a facade ``receive()`` go into its entry's ``facade`` object;
+   K1, K3, K4 and K5 carry each graph's launches in a ``flowgraph``
+   object).
 
 The line before the last is the ``kernels`` JSON line; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -1643,7 +1662,7 @@ def print_pfb_times(label: str, st: dict, extra: str = "") -> None:
 def phase_kernel_times(rx, planes, launches, worst_err, receivers, xd_wide,
                        wide_launches, worst_fir, gw, xd_gw, gw_launches, worst_lag,
                        plans, worst_fused, variants, tools, worst_variants,
-                       facade_launches):
+                       facade_launches, graph_launches):
     import torch
 
     from lora_tpu_torch.ops.cuda_kernels import (detection_metrics_kernel,
@@ -1774,6 +1793,8 @@ def phase_kernel_times(rx, planes, launches, worst_err, receivers, xd_wide,
         "library_ms": None,
         # launches a receive() of the facade, by its channel count
         "facade": {str(c): n["det_metrics"] for c, n in facade_launches.items()},
+        # launches in a flowgraph's run, by graph
+        "flowgraph": {g: n["det_metrics"] for g, n in graph_launches.items()},
     }, {
         "name": "pfb_fir",
         "route": "cuda",
@@ -1788,6 +1809,7 @@ def phase_kernel_times(rx, planes, launches, worst_err, receivers, xd_wide,
         "library_ms": sf["library_ms"],
         "gateway": {k: fir_gw[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                            "library_ms")} | {"launches": gw_launches["pfb_fir"]},
+        "flowgraph": {g: n["pfb_fir"] for g, n in graph_launches.items()},
     }, {
         "name": "lag_rows",
         "route": "cuda",
@@ -1801,6 +1823,7 @@ def phase_kernel_times(rx, planes, launches, worst_err, receivers, xd_wide,
         "bound_by": lag["gateway"]["bound_by"],
         "library_ms": None,
         "plan": lag["plan"],
+        "flowgraph": {g: n["lag_rows"] for g, n in graph_launches.items()},
     }, {
         "name": "fused_chan",
         "route": "cuda",
@@ -1813,6 +1836,7 @@ def phase_kernel_times(rx, planes, launches, worst_err, receivers, xd_wide,
         "bound_ms": fused["US915"]["bound_ms"],
         "bound_by": fused["US915"]["bound_by"],
         "library_ms": fused["US915"]["library_ms"],
+        "flowgraph": {g: n["fused_chan"] for g, n in graph_launches.items()},
     }] + [{
         "name": name,
         "route": "cuda",
@@ -2302,7 +2326,7 @@ def phase_stream_plan(smi_line):
           and n["det_metrics"] == n["pfb_fir"] == 0, f"(d): launches {n}")
     check(sorted(lines) == want, f"(d): the command's lines differ from (c)'s frames: "
           f"{sorted(set(lines) ^ set(want))[:4]}")
-    return rate_c
+    return rate_c, (x, frames)
 
 
 # ------------------------------------------ the facade, suites, modes
@@ -2567,6 +2591,421 @@ def phase_implicit_debug():
               f"tolerance), one det_metrics launch")
 
 
+# --------------------------------------------------- the parity engine
+def loop_syncs(syncs) -> int:
+    """The host synchronisations reported in the parity engine's module."""
+    return sum("rx/receiver.py" in s.replace("\\", "/") for s in syncs)
+
+
+def clamp_capture(cfg, n_noise_symbols: int = 700):
+    """tests/test_torch_parity.py's clamp case: an implicit SF7 frame, then
+    noise of the signal's power to the end of the stream, so the payload
+    demod appends past the demod buffer's 544 codewords."""
+    import numpy as np
+
+    from lora_tpu_torch.tx.modulator import modulate_frame
+
+    pkt = modulate_frame(cfg, DEADBEEF, pad_before=2500, snr_db=None, seed=0)
+    rng = np.random.default_rng(0)
+    L = n_noise_symbols * cfg.samples_per_symbol
+    return np.concatenate([pkt, (rng.normal(size=L) + 1j * rng.normal(size=L)).astype(
+        np.complex64)])
+
+
+def phase_parity(smi_line):
+    """The parity engine on the card: ``LoRaReceiver(engine="parity")`` on
+    :func:`facade_capture`, one channel and three (one batched loop), every
+    packet decoded (6/6, 18/18), the frames equal to the port's golden
+    facade's and to the parity facade's on the CPU (header, payload,
+    channel and sample index exact, snr within 1e-4 relative); the loop's
+    steps, its host syncs a step (at most one: the state read; the ring's
+    fetch once a call), its device kernels and copies a step (profiled) and
+    the median ``receive()``. Then ``short_sim`` through
+    ``run_suite(engine="parity")`` (384/384), the clamp case's final state
+    against the CPU's, and the SF13 sliding sync (sps 65,536) against the
+    CPU's with the device memory it took."""
+    import collections
+
+    import numpy as np
+    import torch
+
+    from lora_tpu_torch import LoRaConfig, LoRaReceiver, ParityReceiver
+    from lora_tpu_torch.device import full_f32_matmul
+    from lora_tpu_torch.ops import demod
+    from lora_tpu_torch.ops.chirp import build_ideal_chirps, instantaneous_frequency_np
+
+    x, want = facade_capture()
+    out = {}
+    for n_ch in (1, 3):
+        kw = dict(samp_rate=1e6, center_freq=FACADE_CENTER,
+                  channel_list=[FACADE_CENTER + o for o in FACADE_OFFSETS[:n_ch]],
+                  bandwidth=125e3, sf=7, cr=4, crc=True)
+        label = f"parity facade {n_ch} channel{'s' if n_ch > 1 else ''}"
+        rx = LoRaReceiver(engine="parity", **kw)
+        check(rx.device.type == "cuda", f"{label}: not on the card")
+        rx._decoders = rx._make_decoder()       # its tables on the card: set-up
+        torch.cuda.synchronize()
+        zero_counts()
+        syncs = host_syncs_in(lambda: out.__setitem__("frames", rx.receive(x)))
+        frames = out["frames"]
+        dec = rx._decoders
+        check(isinstance(dec, ParityReceiver) and dec.device.type == "cuda",
+              f"{label}: engine {type(dec)}")
+        steps, reads = dec.steps, dec.state_reads
+        got = sorted((f.channel, f.mac_payload) for f in frames)
+        check(got == sorted((c, p) for c in range(n_ch) for p in want[c]),
+              f"{label}: frames {got}")
+        in_loop = loop_syncs(syncs)
+        check(reads == steps + 1 and in_loop <= reads + 1,
+              f"{label}: {in_loop} host syncs in the engine for {steps} steps ({reads} "
+              f"reads): {collections.Counter(syncs).most_common(8)}")
+        t0 = time.perf_counter()
+        equal_frames(frames, LoRaReceiver(engine="golden", device="cpu", **kw).receive(x),
+                     f"{label} vs golden")
+        t1 = time.perf_counter()
+        equal_frames(frames, LoRaReceiver(engine="parity", device="cpu", **kw).receive(x),
+                     f"{label} vs the CPU")
+        t2 = time.perf_counter()
+        ms = call_ms(lambda: rx.receive(x), 3)
+        # device kernels and copies a step, profiled on the capture's first
+        # 2^18 samples (~256 steps: the whole capture's ~2,050 steps make
+        # the profiler's own cost dominate)
+        head = x[:1 << 18]
+        _, rows, _ = device_rows(lambda: rx.receive(head), tries=1)
+        head_steps = dec.steps
+        launches = sum(r[2] for r in rows)
+        print(f"{label}: {len(frames)}/{6 * n_ch} packets, equal to the golden facade's and "
+              f"the CPU's; {steps} steps; host syncs {len(syncs)} in receive(), {in_loop} in "
+              f"the engine ({in_loop / steps:.4f} a step); device kernels and copies "
+              f"{launches / head_steps:.1f} a step ({launches} in {head_steps} steps of the "
+              f"first 2^18 samples); receive() median {float(np.median(ms)):.3f} ms "
+              f"({[round(v, 3) for v in ms]}; {float(np.median(ms)) / steps:.4f} ms a step; "
+              f"{smi_line}); the CPU's golden facade {t1 - t0:.1f} s, parity {t2 - t1:.1f} s")
+        for name, t, c in rows[:6]:
+            print(f"  {t:8.3f} ms x{c:<6d} {name[:90]}")
+        out[n_ch] = dict(steps=steps, syncs_per_step=in_loop / steps,
+                         launches_per_step=launches / head_steps, ms=float(np.median(ms)))
+        stamp(f"parity facade {n_ch}")
+
+    # short_sim through the suite runner on the parity engine
+    import os
+
+    from lora_tpu_torch.tools.suite_matrix import MATRIX, run_one
+
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), ".suites", "smoke")
+    os.makedirs(work, exist_ok=True)
+    row = run_one("short_sim", work, None, "parity", "cuda", **dict(MATRIX)["short_sim"])
+    print(f"suite short_sim (parity): {row['passed']}/{row['total']} generate {row['gen_s']} "
+          f"s, decode {row['decode_s']} s ({smi_line})")
+    check(row["passed"] == row["total"] == 384, f"suite short_sim (parity): {row}")
+    os.rmdir(work)
+    stamp("parity short_sim")
+
+    # the clamp case: the loop ends in DECODE_PAYLOAD with a full buffer
+    cfg = LoRaConfig(sf=7, cr=4, samp_rate=1e6, crc=True, implicit=True)
+    xc = torch.from_numpy(clamp_capture(cfg))[None]
+    states = [r.process_complex(xc.to(r.device))
+              for r in (ParityReceiver(cfg), ParityReceiver(cfg, device="cpu"))]
+    for k, w in states[1].items():
+        g = states[0][k].cpu()
+        ok = (torch.allclose(g, w, rtol=1e-4, atol=0) if w.is_floating_point()
+              else torch.equal(g, w))
+        check(ok, f"clamp case: {k} differs from the CPU's")
+    check(int(states[0]["n_demod"][0]) == 544 and int(states[0]["demod_buf"][0, -1]) != 0,
+          "clamp case: the buffer did not fill")
+    print("parity clamp case: the final state (demod buffer full, its clamped last slot "
+          "included) equal to the CPU's")
+
+    # SF13 at 1 Msps: the O(sps^2) sliding sync on one [2*65536] window
+    cfg13 = LoRaConfig(sf=13, cr=4, samp_rate=1e6, crc=True, reduced_rate=True)
+    sps = cfg13.samples_per_symbol
+    up, _ = build_ideal_chirps(cfg13)
+    ifr = torch.as_tensor(instantaneous_frequency_np(up))
+    w2 = torch.as_tensor(np.concatenate([up[sps // 3:], up, up[:sps // 3]])[None])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with full_f32_matmul():
+        got = demod.upchirp_sync_xcorr(w2.cuda(), ifr.cuda(), sps)
+        ms13 = cuda_ms(lambda: demod.upchirp_sync_xcorr(w2.cuda(), ifr.cuda(), sps), 3)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+    ref = demod.upchirp_sync_xcorr(w2, ifr, sps)
+    check(int(got[0][0]) == int(ref[0][0]), f"SF13 sync: {int(got[0][0])} vs the CPU's "
+          f"{int(ref[0][0])}")
+    print(f"parity SF13 sliding sync at sps {sps}: offset {int(got[0][0])} as on the CPU, "
+          f"{ms13:.3f} ms a window, {peak:.1f} MiB of device memory above the inputs "
+          f"({smi_line})")
+    return out
+
+
+# ------------------------------------------------------- the flowgraphs
+def same_placed(frames, ref, label: str, sps: int) -> int:
+    """The same channels, PHY headers and payloads as ``ref``'s frames,
+    each sample index within one symbol (``sps``) of its counterpart's (a
+    streamer reports a packet whose rising edge falls on a block's first
+    window a window later, as JAX's does). Returns how many moved."""
+    def keyed(fs):
+        return sorted(((f.channel, f.phy_header.to_bytes(), f.payload), f.sample_index)
+                      for f in fs)
+
+    a, b = keyed(frames), keyed(ref)
+    check([k for k, _ in a] == [k for k, _ in b], f"{label}: frames differ: "
+          f"{sorted(set(k for k, _ in a) ^ set(k for k, _ in b))[:4]}")
+    moved = [ia - ib for (_, ia), (_, ib) in zip(a, b) if ia != ib]
+    check(all(abs(m) <= sps for m in moved), f"{label}: sample indices moved by {moved}")
+    return len(moved)
+
+
+def write_graph(path, blocks, connections, variables=None) -> str:
+    import yaml
+
+    with open(path, "w") as f:
+        yaml.safe_dump({"options": {"id": "smoke"}, "variables": variables or {},
+                        "blocks": blocks, "connections": connections}, f, sort_keys=False)
+    return str(path)
+
+
+def pfb_grid_capture(M: int, rate: float, spacing_ks, seed: int = 9):
+    """The geometry of tests/test_flowgraph_wideband.py at ``M`` channels:
+    a packet on each channel ``k * rate / M`` of ``spacing_ks`` (one
+    negative), SF7 at the channel rate, over noise of 1e-4 a part.
+    Returns ``(x, {channel index: payload}, length)``."""
+    import numpy as np
+
+    from lora_tpu_torch import LoRaConfig
+    from lora_tpu_torch.tx.modulator import modulate_frame
+
+    wide = LoRaConfig(sf=7, cr=4, samp_rate=rate, crc=True)
+    sps_w = wide.samples_per_symbol
+    pkts = {ci: modulate_frame(wide, bytes([0xC0 + ci]) + DEADBEEF, snr_db=None, seed=ci)
+            for ci in range(len(spacing_ks))}
+    L = (4 + 20 * len(spacing_ks)) * sps_w + max(len(p) for p in pkts.values()) + 64 * sps_w
+    rng = np.random.default_rng(seed)
+    x = (1e-4 * (rng.normal(size=L) + 1j * rng.normal(size=L))).astype(np.complex64)
+    for ci, k in enumerate(spacing_ks):
+        pkt = pkts[ci]
+        pos = (4 + 20 * ci) * sps_w
+        t = np.arange(pos, pos + len(pkt), dtype=np.float64)
+        x[pos:pos + len(pkt)] += (pkt * np.exp(2j * np.pi * (k / M) * t)).astype(np.complex64)
+    return x, {ci: bytes([0xC0 + ci]) + DEADBEEF for ci in range(len(spacing_ks))}
+
+
+def phase_flowgraph(smi_line, plan_stream):
+    """YAML graphs written to a temporary directory and run on the card
+    (``run_flowgraph`` or the ``flowgraph`` command), each with the counts
+    zeroed just before it and read just after: (1) the off-grid route, the
+    facade capture's three channels at decimation 1 (the card's mixer bank,
+    the dense engine in the streamers): 18/18, the payloads, channels and
+    sample indices of the facade's dense frames, the file sink's bytes the
+    frames' LoRaTap bytes; (2) the PFB-grid route at M = 64, 16 Msps (250
+    ksps a channel), 8 active channels, one at a negative offset: every
+    placement decoded, one pfb_fir and one det_metrics launch a block; (3)
+    ``lora_gateway`` with ``plan: EU868`` on stream (c)'s capture: its
+    frames, the reference's SF11 drift-pass fault included as (c) has it;
+    (4) one channel on the parity and golden engines: equal frames; (5) a
+    message-only graph, ``message_socket_source`` to
+    ``message_file_sink`` on 127.0.0.1; (6) ``blocks`` (12 descriptors)
+    and ``analyze --max-buffers 2`` against a ``SampleDebugger``. Returns
+    the graphs' launch counts."""
+    import contextlib
+    import io
+    import os
+    import socket
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    from lora_tpu_torch import Flowgraph, LoRaReceiver, cli, run_flowgraph
+    from lora_tpu_torch.debugger import SampleDebugger
+
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # (1) the off-grid route
+        x, want = facade_capture()
+        cap = os.path.join(tmp, "facade.cf32")
+        x.tofile(cap)
+        sink = os.path.join(tmp, "frames.bin")
+        chans = [FACADE_CENTER + o for o in FACADE_OFFSETS]
+        g = write_graph(os.path.join(tmp, "offgrid.yml"), [
+            {"name": "src", "id": "file_source", "parameters": {"file": cap}},
+            {"name": "rx", "id": "lora_receiver",
+             "parameters": {"samp_rate": "samp_rate", "center_freq": "capture_freq",
+                            "channel_list": chans, "bandwidth": 125000, "sf": 7, "cr": 4,
+                            "crc": True, "implicit": False}},
+            {"name": "file", "id": "message_file_sink", "parameters": {"file": sink}},
+        ], [["src", "0", "rx", "0"], ["rx", "frames", "file", "in"]],
+            {"samp_rate": 1e6, "capture_freq": FACADE_CENTER})
+        graph = Flowgraph.from_yaml(g)
+        check(graph.blocks["rx"].route == "mixer_bank", "(1): not the mixer-bank route")
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        frames = graph.run()
+        wall = time.perf_counter() - t0
+        launches["offgrid"] = n = counts()
+        got = sorted((f.channel, f.mac_payload) for f in frames)
+        check(got == sorted((c, p) for c in range(3) for p in want[c]), f"(1): frames {got}")
+        dense = LoRaReceiver(samp_rate=1e6, center_freq=FACADE_CENTER, channel_list=chans,
+                             bandwidth=125e3, sf=7, cr=4, crc=True, engine="dense").receive(x)
+        moved = same_placed(frames, dense, "(1)", 1024)
+        with open(sink, "rb") as f:
+            check(f.read() == b"".join(fr.to_bytes(0) for fr in frames),
+                  "(1): the file sink's bytes are not the frames'")
+        check(n["det_metrics"] > 0 and n["pfb_fir"] == n["lag_rows"] == n["fused_chan"] == 0,
+              f"(1): launches {n}")
+        print(f"flowgraph (1) off-grid, 3 channels at decimation 1 (mixer bank): "
+              f"{len(frames)}/18, equal to the facade's dense frames ({moved} sample indices "
+              f"moved, each within a symbol), file sink bytes equal; "
+              f"launches {n}; {wall:.2f} s for {x.size} samples ({smi_line})")
+
+        # (2) the PFB-grid route: M = 64 at 16 Msps, 8 active channels
+        M, rate = 64, 16e6
+        ks = (1, 5, -2, 9, 17, -23, 30, -31)
+        xg, pwant = pfb_grid_capture(M, rate, ks)
+        capg = os.path.join(tmp, "grid.cf32")
+        xg.tofile(capg)
+        center = 868.0e6
+        g = write_graph(os.path.join(tmp, "grid.yml"), [
+            {"name": "src", "id": "file_source",
+             "parameters": {"file": capg, "chunk_samples": 1 << 20}},
+            {"name": "rx", "id": "lora_receiver",
+             "parameters": {"samp_rate": rate, "center_freq": center,
+                            "channel_list": [center + k * rate / M for k in ks],
+                            "sf": 7, "cr": 4, "crc": True, "decimation": M,
+                            "block_symbols": 128, "max_candidates": 2, "max_symbols": 24}},
+        ], [["src", "0", "rx", "0"]])
+        graph = Flowgraph.from_yaml(g)
+        rxb = graph.blocks["rx"]
+        check(rxb.route == "pfb", "(2): not the PFB route")
+        blocks = []
+        inner = rxb._wb_stream._process
+        rxb._wb_stream._process = lambda planes: (blocks.append(1), inner(planes))[1]
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        frames = graph.run()
+        wall = time.perf_counter() - t0
+        launches["pfb"] = n = counts()
+        got = {f.channel: f.payload[:len(pwant[f.channel])] for f in frames}
+        check(got == pwant, f"(2): frames {sorted(got.items())}")
+        check(all(f.tap_header.frequency == int(center + ks[f.channel] * rate / M)
+                  for f in frames), "(2): tap header frequency")
+        check(n["pfb_fir"] == n["det_metrics"] == len(blocks) > 0
+              and n["lag_rows"] == n["fused_chan"] == 0,
+              f"(2): launches {n} for {len(blocks)} blocks")
+        print(f"flowgraph (2) PFB grid M={M} at {rate / 1e6:.0f} Msps, {len(ks)} channels: "
+              f"{len(frames)}/{len(ks)} decoded; {len(blocks)} blocks, launches {n}; "
+              f"{wall:.2f} s for {xg.size} samples ({smi_line})")
+
+        # (3) the plan gateway on stream (c)'s capture
+        xp, cframes = plan_stream
+        capp = os.path.join(tmp, "eu868.cf32")
+        xp.tofile(capp)
+        pc, prate = PLAN_GEOMS["EU868"]
+        g = write_graph(os.path.join(tmp, "plan.yml"), [
+            {"name": "src", "id": "file_source", "parameters": {"file": capp}},
+            {"name": "gw", "id": "lora_gateway",
+             "parameters": {"samp_rate": prate, "center_freq": pc, "plan": "EU868",
+                            "sfs": list(GATEWAY_SFS), "pool": 24, "block_symbols": 96}},
+        ], [["src", "0", "gw", "0"]])
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        frames = run_flowgraph(g)
+        wall = time.perf_counter() - t0
+        launches["plan"] = n = counts()
+        stream_vs_oneshot(frames, cframes, "flowgraph (3) vs (c)", lambda sf: 2 ** sf * 2)
+        check(n["fused_chan"] >= 3 and n["fused_chan"] == n["lag_rows"]
+              and n["det_metrics"] == n["pfb_fir"] == 0, f"(3): launches {n}")
+        faults = sum(f.crc_ok is False for f in frames)
+        print(f"flowgraph (3) lora_gateway plan EU868: {len(frames)} frames, equal to stream "
+              f"(c)'s ({faults} with a failed CRC, the reference's SF11 drift-pass fault as "
+              f"(c) has it); launches {n}; {wall:.2f} s ({smi_line})")
+
+        # (4) one channel on the buffered engines
+        res = {}
+        for engine in ("parity", "golden"):
+            g = write_graph(os.path.join(tmp, f"{engine}.yml"), [
+                {"name": "src", "id": "file_source", "parameters": {"file": cap}},
+                {"name": "rx", "id": "lora_receiver",
+                 "parameters": {"samp_rate": 1e6, "center_freq": FACADE_CENTER,
+                                "channel_list": [chans[0]], "sf": 7,
+                                "engine": repr(engine)}},
+            ], [["src", "0", "rx", "0"]])
+            out = io.StringIO()
+            with contextlib.redirect_stderr(out):
+                check(cli.main(["flowgraph", g]) == 0, f"(4) {engine}: exit code")
+            res[engine] = run_flowgraph(g)
+            check(out.getvalue().strip().endswith(f"decoded {len(res[engine])} frames"),
+                  f"(4) {engine}: {out.getvalue()!r}")
+        check(sorted(f.mac_payload for f in res["parity"]) == sorted(want[0]),
+              f"(4): parity frames {[f.mac_payload for f in res['parity']]}")
+        equal_frames(res["parity"], res["golden"], "(4) parity vs golden")
+        print(f"flowgraph (4) one channel (the card's FIR): parity {len(res['parity'])}/6 "
+              f"frames, equal to golden's")
+
+        # (5) a message-only graph on 127.0.0.1
+        msink = os.path.join(tmp, "msg.bin")
+        graph = Flowgraph({"blocks": [
+            {"name": "src", "id": "message_socket_source",
+             "parameters": {"addr": "127.0.0.1", "port": 0}},
+            {"name": "file", "id": "message_file_sink", "parameters": {"file": msink}},
+        ], "connections": [["src", "out", "file", "in"]]})
+        port = graph.blocks["src"].port
+        datagrams = [f.to_bytes(0) for f in res["parity"][:3]]
+
+        def send():
+            time.sleep(0.2)
+            s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+            for d in datagrams:
+                s.sendto(d, ("127.0.0.1", port))
+                time.sleep(0.02)
+            s.close()
+
+        t = threading.Thread(target=send)
+        t.start()
+        got = graph.run(max_frames=len(datagrams), max_seconds=20.0)
+        t.join()
+        with open(msink, "rb") as f:
+            check(len(got) == len(datagrams) and f.read() == b"".join(datagrams),
+                  "(5): the message graph's file differs from the datagrams")
+        print(f"flowgraph (5) message_socket_source -> message_file_sink: {len(got)} "
+              f"datagrams republished byte-equal")
+
+        # (6) blocks and analyze
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            check(cli.main(["blocks"]) == 0, "(6) blocks: exit code")
+        n_desc = out.getvalue().count("id: lora_")
+        check(n_desc == 12, f"(6) blocks: {n_desc} descriptors")
+        path = os.path.join(tmp, "scope.sock")
+
+        def client():
+            d = SampleDebugger()
+            for _ in range(500):
+                d.attach(path)
+                if d.attached:
+                    break
+                time.sleep(0.02)
+            for k in range(3):
+                d.store_samples(x[k * 1000:(k + 1) * 1000])
+                d.analyze_samples()
+            d.detach()
+
+        t = threading.Thread(target=client)
+        t.start()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            check(cli.main(["analyze", "--socket", path, "--max-buffers", "2"]) == 0,
+                  "(6) analyze: exit code")
+        t.join()
+        print(f"flowgraph (6) blocks: {n_desc} descriptors; analyze --max-buffers 2: "
+              f"{out.getvalue().strip()!r}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2629,7 +3068,7 @@ def main() -> int:
     stamp("phase_stream_dense")
     phase_stream_wideband(smi_line)
     stamp("phase_stream_wideband")
-    phase_stream_plan(smi_line)
+    _, plan_stream = phase_stream_plan(smi_line)
     stamp("phase_stream_plan")
     variants = phase_variant_times(planes[torch.float32], rx.sps)
     stamp("phase_variant_times")
@@ -2641,9 +3080,14 @@ def main() -> int:
     stamp("phase_low_snr")
     phase_implicit_debug()
     stamp("phase_implicit_debug")
+    phase_parity(smi_line)
+    stamp("phase_parity")
+    graph_launches = phase_flowgraph(smi_line, plan_stream)
+    del plan_stream
+    stamp("phase_flowgraph")
     phase_kernel_times(rx, planes, launches, worst, receivers, xd_wide, wide_launches,
                        worst_fir, gw, xd_gw, gw_launches, worst_lag, plans, worst_fused,
-                       variants, tools, worst_variants, facade_launches)
+                       variants, tools, worst_variants, facade_launches, graph_launches)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -37,7 +37,15 @@ Ported so far:
   ``WidebandStreamingReceiver``) through the package's own C++ sample
   ring (``native``) and page-locked staging, the UDP and file frame sinks
   (``io.udp``, ``io.sinks``), and the ``gateway`` command
-  (``python -m lora_tpu_torch.cli gateway``).
+  (``python -m lora_tpu_torch.cli gateway``);
+- the parity engine (``ParityReceiver``, ``rx.receiver``): the
+  reference's seven-state machine, batched over channels, its loop driven
+  from the host over state tensors on the card, behind
+  ``LoRaReceiver(engine="parity")``;
+- the flowgraph layer (``flowgraph``: ``Flowgraph``, ``run_flowgraph``,
+  the block registry, ``StreamingLoRaReceiver`` and ``StreamingGateway``),
+  the sample debugger (``debugger``), and the ``flowgraph``, ``blocks``
+  and ``analyze`` commands.
 """
 
 __version__ = "0.1.0"
@@ -67,6 +75,14 @@ def __getattr__(name):  # lazy: the receivers pull in torch
         from .plans import PlanGateway
 
         return PlanGateway
+    if name == "ParityReceiver":
+        from .rx.receiver import ParityReceiver
+
+        return ParityReceiver
+    if name in ("Flowgraph", "run_flowgraph"):
+        from . import flowgraph
+
+        return getattr(flowgraph, name)
     if name == "PolyphaseChannelizer":
         from .channelizer import PolyphaseChannelizer
 

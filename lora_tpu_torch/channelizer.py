@@ -300,17 +300,18 @@ class PolyphaseChannelizer:
 
 # -- a few channels at any offsets: the facade's channelizer --------------
 def make_mixer_planes(offsets_hz, samp_rate: float, length: int,
-                      chunk: int = 1 << 20) -> np.ndarray:
-    """The mixer table ``exp(-2j pi f_c/fs n)`` of every channel as float32
-    planes ``[C, 2, length]``: the phase accumulated in float64 and reduced
-    mod 1 cycle before the cast (a float32 ramp loses degrees by a few
-    million samples, a spur the channel filter cannot remove), built
-    ``chunk`` samples at a time so the float64 intermediate stays bounded."""
+                      chunk: int = 1 << 20, start: int = 0) -> np.ndarray:
+    """The mixer table ``exp(-2j pi f_c/fs n)`` of every channel, for ``n``
+    in ``[start, start + length)``, as float32 planes ``[C, 2, length]``:
+    the phase accumulated in float64 and reduced mod 1 cycle before the
+    cast (a float32 ramp loses degrees by a few million samples, a spur the
+    channel filter cannot remove), built ``chunk`` samples at a time so the
+    float64 intermediate stays bounded."""
     offs = np.asarray(offsets_hz, dtype=np.float64) / samp_rate
     C = len(offs)
     out = np.empty((C, 2, length), dtype=np.float32)
     for s in range(0, length, chunk):
-        n = np.arange(s, min(s + chunk, length), dtype=np.float64)
+        n = start + np.arange(s, min(s + chunk, length), dtype=np.float64)
         ph = -2.0 * np.pi * ((offs[:, None] * n[None, :]) % 1.0)
         out[:, 0, s:s + len(n)] = np.cos(ph)
         out[:, 1, s:s + len(n)] = np.sin(ph)

@@ -1,9 +1,9 @@
 """Command line of the PyTorch/CUDA port.
 
-    python -m lora_tpu_torch.cli decode-file FILE [--engine golden|dense]
+    python -m lora_tpu_torch.cli decode-file FILE [--engine golden|parity|dense]
                                          [--low-snr [auto]] [--sf 7 ...] [--device cpu]
     python -m lora_tpu_torch.cli gen-suite OUT [--suite short_sim] [--sfs 7 ... 12]
-    python -m lora_tpu_torch.cli testsuite PATH [SUITE ...] [--engine golden|dense]
+    python -m lora_tpu_torch.cli testsuite PATH [SUITE ...] [--engine golden|parity|dense]
                                          [--reports DIR] [--min-accuracy A] [--device cpu]
     python -m lora_tpu_torch.cli gateway FILE [--plan EU868 --center-freq HZ]
                                          [--samp-rate HZ] [--channels M] [--sfs 7 ... 12]
@@ -12,6 +12,10 @@
                                          [--device cpu] ...
     python -m lora_tpu_torch.cli timings [--sfs 7 12] [--methods gradient fft]
                                          [--iters 5] [--out FILE] [--device cpu]
+    python -m lora_tpu_torch.cli flowgraph FILE [--max-frames N] [--max-seconds S]
+                                         [--device cpu]
+    python -m lora_tpu_torch.cli blocks [BLOCK]
+    python -m lora_tpu_torch.cli analyze [--socket PATH] [--max-buffers N]
 
 ``decode-file`` decodes a raw cf32 or SigMF capture through the receiver
 facade (``LoRaReceiver``) and prints one line a frame, as ``lora_tpu.cli
@@ -24,9 +28,12 @@ regional plan with ``--plan``), in one call or, with ``--stream``, in
 overlap-save blocks read from the file chunk by chunk, and prints one
 line a frame, as ``lora_tpu.cli gateway`` does. ``timings`` prints the
 per-stage timing study (:func:`lora_tpu_torch.profiling.timing_table`).
-Each runs on the card, or on the CPU with ``--device cpu`` (``gen-suite``
-runs on the host). The ``bench``, ``flowgraph``, ``blocks`` and
-``analyze`` subcommands of ``lora_tpu.cli`` are not ported yet.
+``flowgraph`` runs a YAML flowgraph (:mod:`lora_tpu_torch.flowgraph`),
+``blocks`` prints the block descriptors as YAML (those of ``lora_tpu.cli
+blocks``), and ``analyze`` runs the sample scope on a debugger socket
+(:func:`lora_tpu_torch.debugger.live_analyze`). Each runs on the card, or
+on the CPU with ``--device cpu`` (``gen-suite``, ``blocks`` and
+``analyze`` run on the host). ``lora_tpu.cli``'s ``bench`` is not ported.
 """
 
 from __future__ import annotations
@@ -36,6 +43,8 @@ import os
 import sys
 
 import numpy as np
+
+from .debugger import DEFAULT_SOCK
 
 
 def _low_snr_value(s: str):
@@ -189,6 +198,38 @@ def cmd_timings(args) -> int:
     return 0
 
 
+def cmd_flowgraph(args) -> int:
+    from .flowgraph import run_flowgraph
+
+    frames = run_flowgraph(args.file, max_frames=args.max_frames,
+                           max_seconds=args.max_seconds, device=args.device)
+    print(f"decoded {len(frames)} frames", file=sys.stderr)
+    return 0
+
+
+def cmd_blocks(args) -> int:
+    """The block descriptor set as YAML (grc/*.block.yml's fields)."""
+    import yaml
+
+    from .flowgraph import block_descriptors
+
+    descs = block_descriptors()
+    if args.block:
+        descs = [d for d in descs if d["id"] in (args.block, f"lora_{args.block}")]
+        if not descs:
+            print(f"unknown block {args.block!r}", file=sys.stderr)
+            return 2
+    print(yaml.safe_dump_all(descs, sort_keys=False), end="")
+    return 0
+
+
+def cmd_analyze(args) -> int:
+    from .debugger import live_analyze
+
+    live_analyze(args.socket, max_buffers=args.max_buffers)
+    return 0
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="lora_tpu_torch", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -211,8 +252,7 @@ def main(argv=None) -> int:
     d.add_argument("--conj", action="store_true")
     d.add_argument("--decimation", type=int, default=1)
     d.add_argument("--no-drift-correction", action="store_true")
-    d.add_argument("--engine", default="golden", choices=["golden", "parity", "dense"],
-                   help="parity is not ported (raises)")
+    d.add_argument("--engine", default="golden", choices=["golden", "parity", "dense"])
     d.add_argument("--low-snr", nargs="?", const=True, default=False,
                    type=_low_snr_value, metavar="auto",
                    help="coherent low-SNR mode (dense fft engine); '--low-snr "
@@ -229,8 +269,7 @@ def main(argv=None) -> int:
     t.add_argument("path")
     t.add_argument("suites", nargs="*")
     t.add_argument("--reports", default=None)
-    t.add_argument("--engine", default="golden", choices=["golden", "parity", "dense"],
-                   help="parity is not ported (raises)")
+    t.add_argument("--engine", default="golden", choices=["golden", "parity", "dense"])
     t.add_argument("--nowrite", action="store_true")
     t.add_argument("--min-accuracy", type=float, default=0.0)
     t.add_argument("--device", default=None, help=device_help)
@@ -296,6 +335,24 @@ def main(argv=None) -> int:
     tm.add_argument("--out", default=None, help="write the markdown table here")
     tm.add_argument("--device", default=None, help=device_help)
     tm.set_defaults(fn=cmd_timings)
+
+    fg = sub.add_parser("flowgraph",
+                        help="run a declarative flowgraph (parity with GRC .grc files)")
+    fg.add_argument("file", help="flowgraph YAML")
+    fg.add_argument("--max-frames", type=int, default=None)
+    fg.add_argument("--max-seconds", type=float, default=None)
+    fg.add_argument("--device", default=None, help=device_help)
+    fg.set_defaults(fn=cmd_flowgraph)
+
+    bl = sub.add_parser("blocks",
+                        help="list flowgraph block descriptors (parity with grc/*.block.yml)")
+    bl.add_argument("block", nargs="?", default=None)
+    bl.set_defaults(fn=cmd_blocks)
+
+    a = sub.add_parser("analyze", help="live sample scope (parity with grlora_analyze.py)")
+    a.add_argument("--socket", default=DEFAULT_SOCK)
+    a.add_argument("--max-buffers", type=int, default=None)
+    a.set_defaults(fn=cmd_analyze)
     args = p.parse_args(argv)
     return args.fn(args)
 

@@ -86,6 +86,10 @@ class LoRaTapHeader:
             self.sync_word,
         )
 
+    @classmethod
+    def from_bytes(cls, b) -> "LoRaTapHeader":
+        return cls(*struct.unpack(">BBHIBBBBBBB", bytes(b[:LORATAP_HEADER_SIZE])))
+
 
 def snr_to_loratap(snr: float) -> int:
     """``(uint8)(10*log10(snr) + 0.5)`` — reference lib/decoder_impl.cc:597.
@@ -150,6 +154,24 @@ class Frame:
             end = len(buf) - MAC_CRC_SIZE * self.phy_header.has_mac_crc
             return buf[LORATAP_HEADER_SIZE + LORAPHY_HEADER_SIZE : end]
         return buf
+
+    @classmethod
+    def from_bytes(cls, buf: bytes) -> "Frame":
+        """Dissect a LORATAP-layer buffer back into a Frame (the
+        ``dissect_packet`` counterpart of ``build_packet``, reference
+        include/lora/utilities.h:406-416); round-trips ``to_bytes()``. The
+        tap header's snr byte is kept as received."""
+        buf = bytes(buf)
+        head = LORATAP_HEADER_SIZE + LORAPHY_HEADER_SIZE
+        if len(buf) < head:
+            raise ValueError(f"buffer too short for loratap+phy headers ({len(buf)} bytes)")
+        tap = LoRaTapHeader.from_bytes(buf)
+        wire_snr = tap.snr
+        f = cls(phy_header=PhyHeader.from_bytes(buf[LORATAP_HEADER_SIZE:head]),
+                payload=buf[head:], snr=10.0 ** (wire_snr / 10.0) if wire_snr else 0.0,
+                tap_header=tap)
+        f.tap_header.snr = wire_snr
+        return f
 
     @property
     def mac_payload(self) -> bytes:

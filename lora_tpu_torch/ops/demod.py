@@ -1,7 +1,10 @@
-"""Demodulation ops of the dense receiver's two engines.
+"""Demodulation ops of the dense receiver's two engines and the parity engine.
 
-Torch forms of the per-window DSP that the dense receiver's Phase B runs
-(reference ``lib/decoder_impl.cc``). The fft engine's: preamble CFO,
+Torch forms of the per-window DSP that the dense receiver's Phase B and
+the parity engine (:mod:`lora_tpu_torch.rx.receiver`) run (reference
+``lib/decoder_impl.cc``). The parity engine's detection reductions: the
+preamble autocorrelation (``detect_preamble_autocorr`` :340-366) and the
+symbol energy (``determine_energy`` :368-375). The fft engine's: preamble CFO,
 upchirp sync, the SFD Pearson (``detect_downchirp`` :283-298,385-390),
 the folded dechirp argmax (``get_shift_fft`` :430-464), its fractional
 tone position, the upchirp likeness and the chirp CFO/STO separation.
@@ -47,6 +50,31 @@ def _fold_power(windows: torch.Tensor, fold_mat) -> torch.Tensor:
     fr = wr @ er - wi @ ei
     fi = wr @ ei + wi @ er
     return fr * fr + fi * fi
+
+
+def preamble_autocorr(windows: torch.Tensor, sps: int):
+    """Normalised autocorrelation of two consecutive symbols (reference
+    ``detect_preamble_autocorr`` :340-366) of complex windows ``[...,
+    2*sps]``: ``(autocorr, energy1, energy2)`` float32 ``[...]``, the
+    energies total (not per sample) as in the reference. A zero-energy
+    window scores 0, where the reference's 0/0 gives NaN: both fail its
+    ``>= 0.90`` test."""
+    c1 = windows[..., :sps]
+    c2 = windows[..., sps:2 * sps]
+    dot = torch.sum(c1 * torch.conj(c2), dim=-1)
+    e1 = torch.sum(c1.real ** 2 + c1.imag ** 2, dim=-1)
+    e2 = torch.sum(c2.real ** 2 + c2.imag ** 2, dim=-1)
+    denom = torch.sqrt(e1 * e2)
+    ok = denom > 0
+    corr = torch.where(ok, dot.abs() / torch.where(ok, denom, torch.ones_like(denom)),
+                       torch.zeros_like(denom))
+    return corr.to(torch.float32), e1.to(torch.float32), e2.to(torch.float32)
+
+
+def symbol_energy(window: torch.Tensor) -> torch.Tensor:
+    """Total ``|x|^2`` of complex windows ``[..., sps]`` (reference
+    ``determine_energy`` :368-375). float32 ``[...]``."""
+    return torch.sum(window.real ** 2 + window.imag ** 2, dim=-1).to(torch.float32)
 
 
 def preamble_cfo(x2: torch.Tensor, sps: int, samp_rate: float) -> torch.Tensor:

@@ -14,14 +14,16 @@ Engines:
   (:class:`~lora_tpu_torch.rx.golden.GoldenReceiver`), the default;
 - ``"dense"``: the batched two-phase receiver
   (:class:`~lora_tpu_torch.rx.dense.DenseReceiver`) on the facade's device;
-- ``"parity"``: the jitted state machine of the JAX package, not ported
-  (``NotImplementedError``).
+- ``"parity"``: the reference's state machine on the facade's device
+  (:class:`~lora_tpu_torch.rx.receiver.ParityReceiver`); several channels
+  decode in one batched loop, their frames ordered by channel, then by
+  time, as JAX's channel-by-channel runs order them.
 
 Channelization runs on the facade's device (``None``: the card): one
 channel through :func:`~lora_tpu_torch.channelizer.freq_xlating_fir`,
 several through :func:`~lora_tpu_torch.channelizer.channelize_list`. The
-dense engine takes the channel streams where they lie; the golden engine
-copies them to the host. Unlike the reference (which channelizes only
+dense and parity engines take the channel streams where they lie; the
+golden engine copies them to the host. Unlike the reference (which channelizes only
 ``channel_list[0]``, lib/channelizer_impl.cc:47), every listed channel is
 extracted and decoded.
 """
@@ -68,11 +70,7 @@ class LoRaReceiver:
         device=None,
         **engine_kwargs,
     ):
-        if engine == "parity":
-            raise NotImplementedError(
-                "the parity engine (JAX's JaxReceiver) is not ported: ROADMAP.md "
-                "section 1, item 5")
-        if engine not in ("golden", "dense"):
+        if engine not in ("golden", "dense", "parity"):
             raise ValueError(f"unknown engine {engine!r}")
         self.device = resolve_device(device)
         self.auto_cfo = auto_cfo
@@ -140,15 +138,21 @@ class LoRaReceiver:
             from .rx.golden import GoldenReceiver
 
             return GoldenReceiver(self.config)
+        if self.engine == "parity":
+            from .rx.receiver import ParityReceiver
+
+            return ParityReceiver(self.config, device=self.device, **self._engine_kwargs)
         from .rx.dense import DenseReceiver
 
         return DenseReceiver(self.config, device=self.device, **self._engine_kwargs)
 
     def _run_streams(self, dec, streams) -> List[Frame]:
         """Decode every channel stream; ``frame.channel`` is its index. The
-        dense engine decodes several channels in one call."""
-        if self.engine == "dense" and len(streams) > 1:
+        dense and parity engines decode several channels in one call."""
+        if len(streams) > 1 and self.engine == "dense":
             return dec.run(streams)
+        if len(streams) > 1 and self.engine == "parity":
+            return dec.run_batch(streams)
         frames: List[Frame] = []
         for ci, s in enumerate(streams):
             if self.engine == "golden" and isinstance(s, torch.Tensor):

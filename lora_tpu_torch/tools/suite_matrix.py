@@ -1,6 +1,6 @@
 """The accuracy matrix on the port: generate each suite, run it, delete it.
 
-    python -m lora_tpu_torch.tools.suite_matrix [SUITE ...] [--engine dense]
+    python -m lora_tpu_torch.tools.suite_matrix [SUITE ...] [--engine dense|parity|golden]
         [--reports DIR] [--work DIR] [--device cpu]
 
 The suites are the 13 of the JAX package's accuracy matrix
@@ -11,7 +11,8 @@ each deleted once it has run: the whole matrix holds ~12 GB of traces,
 one suite at most ~1.5 GB. Each runs through the port's ``run_suite``
 (``engine``, ``device``: ``None`` is the card). With ``--reports`` each
 suite's Markdown report goes there (``<suite>_<engine>.md``) with an
-index, ``README.md``, of every suite's counts and its generation and
+index (``README.md``; ``README_<engine>.md`` for an engine other than
+dense) of every suite's counts and its generation and
 decode seconds beside the device's name (and, on the card, its power
 limit as ``nvidia-smi`` reads it). One JSON line a suite on stdout.
 """
@@ -80,7 +81,9 @@ def run_one(suite: str, work: str, reports=None, engine: str = "dense", device=N
 
 
 def write_index(reports: str, rows, engine: str, device: str) -> str:
-    """``README.md`` in ``reports``: one row a suite."""
+    """The index in ``reports``, one row a suite: ``README.md`` for the
+    dense engine, ``README_<engine>.md`` for another, so the engines'
+    reports share a directory."""
     lines = [
         "# Accuracy reports of the PyTorch/CUDA port",
         "",
@@ -96,7 +99,7 @@ def write_index(reports: str, rows, engine: str, device: str) -> str:
         name = f"{r['suite']}_{engine}.md"
         lines.append(f"| [{name}]({name}) | {r['passed']} | {r['total']} | "
                      f"{100 * r['accuracy']:.2f}% | {r['gen_s']} | {r['decode_s']} |")
-    path = os.path.join(reports, "README.md")
+    path = os.path.join(reports, "README.md" if engine == "dense" else f"README_{engine}.md")
     with open(path, "w") as f:
         f.write("\n".join(lines) + "\n")
     return path
@@ -127,7 +130,7 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("suites", nargs="*", help="suites of the matrix to run (default: all)")
-    p.add_argument("--engine", default="dense", choices=["golden", "dense"])
+    p.add_argument("--engine", default="dense", choices=["golden", "parity", "dense"])
     p.add_argument("--reports", default=None)
     p.add_argument("--work", default=None)
     p.add_argument("--device", default=None)

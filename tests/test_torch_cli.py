@@ -3,7 +3,10 @@ on the same cf32 files, on the CPU (``--device cpu``): the same frame
 lines and summary, for the multi-SF PFB gateway and the EU868 plan, each
 in one call and with ``--stream`` over block seams (mirrors
 tests/test_cli.py:59-126); the UDP sink on a port of the kernel's choice;
-``--implicit`` raises until implicit headers are ported."""
+``--implicit`` raises until implicit headers are ported. ``blocks`` prints
+JAX's YAML byte for byte; ``flowgraph`` prints JAX's frame lines and
+summary for a graph of examples/lora_receive_file.yml's shape; ``analyze``
+prints what JAX's prints for the same debugger client."""
 
 import os
 import subprocess
@@ -149,3 +152,93 @@ def test_gateway_shell_entry_and_errors(tmp_path):
     assert "aa55" in "".join(lines[0].split()[3:])
     assert main(["gateway", str(tmp_path / "missing.cf32"), "--device", "cpu"]) == 2
     assert main(["gateway", f, *args, "--implicit", "--device", "cpu"]) == 0
+
+
+@pytest.mark.parametrize("block", [None, "lora_receiver", "lora_lora_gateway",
+                                   "message_mongodb_sink"])
+def test_blocks_prints_jax_yaml(capsys, block):
+    """``blocks [BLOCK]``: the descriptor YAML, byte-equal to JAX's (12
+    descriptors in all)."""
+    args = ["blocks"] + ([block] if block else [])
+    assert main(args) == 0
+    got = capsys.readouterr().out
+    assert jmain(args) == 0
+    assert got == capsys.readouterr().out
+    assert got.count("\nid: lora_") + got.startswith("id: lora_") == (12 if block is None else 1)
+
+
+def test_blocks_unknown_block(capsys):
+    assert main(["blocks", "warp_drive"]) == jmain(["blocks", "warp_drive"]) == 2
+    err = capsys.readouterr().err.splitlines()
+    assert err == ["unknown block 'warp_drive'"] * 2
+
+
+def test_flowgraph_command_prints_jax_lines(tmp_path, capsys):
+    """``flowgraph FILE --device cpu``: a graph of the shape of
+    examples/lora_receive_file.yml (a channel 100 kHz off the capture's
+    center, a print sink at the LoRaPHY layer): the same frame lines and
+    the same summary as ``lora_tpu.cli flowgraph``."""
+    cfg = LoRaConfig(sf=7, cr=4, samp_rate=1e6, crc=True)
+    sps = cfg.samples_per_symbol
+    x = np.concatenate([modulate_frame(cfg, bytes([k, 0xEE]), pad_before=3000,
+                                       pad_after=2 * sps, snr_db=40.0, seed=k)
+                        for k in range(2)] + [np.zeros(4 * sps, np.complex64)])
+    t = np.arange(len(x))
+    (x * np.exp(2j * np.pi * 100e3 / 1e6 * t)).astype(np.complex64).tofile(tmp_path / "c.cf32")
+    y = tmp_path / "g.yml"
+    y.write_text(f"""
+options: {{id: lora_receive_file}}
+variables: {{samp_rate: 1e6, capture_freq: 868.0e6, offset: 100e3}}
+blocks:
+- {{name: src, id: file_source, parameters: {{file: {tmp_path / 'c.cf32'}}}}}
+- {{name: throttle, id: throttle, parameters: {{samp_rate: samp_rate * 100}}}}
+- name: lora_rx
+  id: lora_receiver
+  parameters: {{samp_rate: samp_rate, center_freq: capture_freq,
+               channel_list: [capture_freq + offset], sf: 7, cr: 4, crc: True}}
+- {{name: printer, id: frame_print_sink, parameters: {{layer: 1}}}}
+connections:
+- [src, '0', throttle, '0']
+- [throttle, '0', lora_rx, '0']
+- [lora_rx, frames, printer, in]
+""")
+    assert main(["flowgraph", str(y), "--device", "cpu"]) == 0
+    got = capsys.readouterr()
+    assert jmain(["flowgraph", str(y)]) == 0
+    want = capsys.readouterr()
+    assert got.out.splitlines() == want.out.splitlines()
+    assert [line.split()[3:5] for line in got.out.splitlines()] == [["00", "ee"], ["01", "ee"]]
+    assert got.err.splitlines()[-1] == want.err.splitlines()[-1] == "decoded 2 frames"
+
+
+def test_analyze_command_matches_jax(tmp_path, capsys):
+    """``analyze --socket PATH --max-buffers 2`` against a
+    ``SampleDebugger`` client: it takes two buffers and prints what JAX's
+    command prints."""
+    import threading
+    import time
+
+    from lora_tpu_torch.debugger import SampleDebugger
+
+    out = {}
+    for name, entry in (("port", main), ("jax", jmain)):
+        path = str(tmp_path / f"{name}.sock")
+
+        def client():
+            d = SampleDebugger()
+            for _ in range(200):
+                d.attach(path)
+                if d.attached:
+                    break
+                time.sleep(0.02)
+            for k in range(3):
+                d.store_samples(np.exp(1j * np.arange(64) * 0.1 * (k + 1)).astype(np.complex64))
+                d.analyze_samples()
+            d.detach()
+
+        t = threading.Thread(target=client)
+        t.start()
+        assert entry(["analyze", "--socket", path, "--max-buffers", "2"]) == 0
+        t.join()
+        out[name] = capsys.readouterr().out.replace(path, "PATH")
+    assert out["port"] == out["jax"] and out["port"].startswith("listening on PATH")

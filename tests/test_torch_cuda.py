@@ -2,8 +2,10 @@
 dense receiver (both engines), wideband, multi-SF gateway and plan
 gateway receivers on the card against the port on the CPU, and the
 kernel studies; the receiver facade, implicit headers, ``low_snr`` and
-``debug_trace`` against the CPU, and (``slow``) the 13-suite accuracy
-matrix on the card (``LORA_TORCH_REPORTS=DIR`` keeps its reports).
+``debug_trace`` against the CPU; the parity engine and one flowgraph
+receiver of each channelizer route against the CPU; and (``slow``) the
+13-suite accuracy matrix on the card, dense and parity engines
+(``LORA_TORCH_REPORTS=DIR`` keeps its reports).
 
 Every test here needs a CUDA device and skips without one. The file
 imports neither JAX nor the JAX package, so it runs where only torch is
@@ -761,17 +763,118 @@ def test_debug_trace_on_card_matches_cpu(cuda_device, method):
             np.testing.assert_array_equal(got[k], w, err_msg=k)
 
 
+def _parity_streams():
+    """Three SF7 streams of one length: 1, 2 and 3 frames, each at its own
+    offset."""
+    cfg = LoRaConfig(sf=7, cr=4, samp_rate=1e6, crc=True)
+    sps = cfg.samples_per_symbol
+    streams = []
+    for c in range(3):
+        one = modulate_frame(cfg, bytes([0xA0 + c]) + bytes.fromhex("deadbeef"),
+                             pad_before=2500 + 1000 * c, pad_after=2 * sps, snr_db=40.0, seed=c)
+        streams.append(np.concatenate([one] * (1 + c)))
+    L = max(len(s) for s in streams) + 4 * sps
+    return cfg, np.stack([np.pad(s, (0, L - len(s))) for s in streams])
+
+
+@pytest.mark.parametrize("case", ["one-stream", "three-channel-batch", "clamp-state"])
+def test_parity_on_card_matches_cpu(cuda_device, case):
+    """The parity engine on the card against the CPU: frames (header,
+    payload, channel, sample index exact; snr rtol 1e-4), and for the
+    implicit capture that runs past the demod buffer, the final state
+    (integer fields equal, float fields rtol 1e-4)."""
+    from lora_tpu_torch import ParityReceiver
+
+    if case == "clamp-state":
+        cfg = LoRaConfig(sf=7, cr=4, samp_rate=1e6, crc=True, implicit=True)
+        pkt = modulate_frame(cfg, bytes.fromhex("deadbeef"), pad_before=2500, snr_db=None)
+        rng = np.random.default_rng(0)
+        n = 700 * cfg.samples_per_symbol
+        x = torch.from_numpy(np.concatenate([pkt, (rng.normal(size=n) + 1j * rng.normal(
+            size=n)).astype(np.complex64)]))[None]
+        got = ParityReceiver(cfg).process_complex(x.cuda())
+        want = ParityReceiver(cfg, device="cpu").process_complex(x)
+        assert int(want["n_demod"][0]) == 544
+        for k, w in want.items():
+            if w.is_floating_point():
+                torch.testing.assert_close(got[k].cpu(), w, rtol=1e-4, atol=0)
+            else:
+                assert torch.equal(got[k].cpu(), w), k
+        return
+    cfg, streams = _parity_streams()
+    rx, cpu = ParityReceiver(cfg), ParityReceiver(cfg, device="cpu")
+    assert rx.device.type == "cuda"
+    if case == "one-stream":
+        got, want = rx.run(streams[2]), cpu.run(streams[2])
+        assert len(got) == 3
+    else:
+        got, want = rx.run_batch(streams), cpu.run_batch(streams)
+        assert [f.channel for f in got] == [0, 1, 1, 2, 2, 2]
+    assert rx.state_reads == rx.steps + 1
+    _frames_equal(got, want)
+
+
+def _route_graph(route):
+    """A receiver block and a capture for each channelizer route: the
+    mixer bank (three channels at decimation 2), the one-channel FIR
+    (decimation 4) and the PFB grid (M = 8, three channels)."""
+    from lora_tpu_torch.flowgraph import StreamingLoRaReceiver
+
+    rate = 2e6 if route != "fir" else 1e6
+    offs = {"mixer_bank": (-300e3, 130e3, 610e3), "fir": (50e3,),
+            "pfb": (-500e3, 250e3, 750e3)}[route]
+    D = {"mixer_bank": 2, "fir": 4, "pfb": 8}[route]
+    wide = LoRaConfig(sf=7, cr=4, samp_rate=rate, crc=True)
+    rng = np.random.default_rng(5)
+    L = 60 * wide.samples_per_symbol * len(offs) + 400_000
+    # noise of 0.02 a part: above the other channels' leakage through the
+    # channel filter (a scale-invariant detector raises candidates on it)
+    x = (0.02 * (rng.normal(size=L) + 1j * rng.normal(size=L))).astype(np.complex64)
+    for c, off in enumerate(offs):
+        pkt = modulate_frame(wide, bytes([0xD0 + c, 0x01]), snr_db=None, seed=c)
+        pos = 5000 + 40 * wide.samples_per_symbol * c
+        t = np.arange(pos, pos + len(pkt), dtype=np.float64)
+        x[pos:pos + len(pkt)] += (pkt * np.exp(2j * np.pi * off / rate * t)).astype(np.complex64)
+
+    def make(device):
+        return StreamingLoRaReceiver(rate, 868e6, [868e6 + o for o in offs], sf=7, cr=4,
+                                     decimation=D, block_symbols=128, max_candidates=4,
+                                     max_symbols=24, device=device)
+    return make, x, len(offs)
+
+
+@pytest.mark.parametrize("route", ["mixer_bank", "fir", "pfb"])
+def test_flowgraph_route_on_card_matches_cpu(cuda_device, route):
+    """One graph receiver of each channelizer route on the card against the
+    CPU, the capture pushed in 100,003-sample chunks: every packet, the
+    CPU's frames."""
+    make, x, n = _route_graph(route)
+    out = []
+    for rx in (make(None), make("cpu")):
+        assert rx.route == route
+        frames = []
+        for i in range(0, len(x), 100_003):
+            frames += rx.push(x[i:i + 100_003])
+        frames += rx.flush()
+        rx.close()
+        out.append(sorted(frames, key=lambda f: (f.channel, f.sample_index)))
+    assert [f.payload[:2] for f in out[0]] == [bytes([0xD0 + c, 0x01]) for c in range(n)]
+    _frames_equal(*out)
+
+
 @pytest.mark.slow
-def test_suite_matrix_on_card(cuda_device, tmp_path):
-    """The 13 suites of the JAX package's accuracy matrix (its dense
-    column, docs/test-results/README.md), generated by the port and run by
-    its dense engine on the card: each at 100 %. Reports and index go to
-    ``$LORA_TORCH_REPORTS`` when set (else a temporary directory)."""
+@pytest.mark.parametrize("engine", ["dense", "parity"])
+def test_suite_matrix_on_card(cuda_device, tmp_path, engine):
+    """The 13 suites of the JAX package's accuracy matrix (its dense and
+    parity columns, docs/test-results/README.md), generated by the port
+    and run by its ``engine`` on the card: each at 100 %. Reports and the
+    engine's index go to ``$LORA_TORCH_REPORTS`` when set (else a
+    temporary directory)."""
     import os
 
     from lora_tpu_torch.tools.suite_matrix import MATRIX, run_matrix
 
     reports = os.environ.get("LORA_TORCH_REPORTS", str(tmp_path / "reports"))
-    rows = run_matrix(reports=reports, engine="dense", device="cuda")
+    rows = run_matrix(reports=reports, engine=engine, device="cuda")
     assert [r["suite"] for r in rows] == [s for s, _ in MATRIX]
     assert all(r["passed"] == r["total"] > 0 for r in rows), rows

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: it imports neither JAX nor the JAX
-package, its entry points default to the card and refuse to fall back to
-the CPU, and the detection-kernel wrapper dispatches by device."""
+package (the parity engine, the flowgraph and the debugger included), its
+entry points default to the card and refuse to fall back to the CPU, and
+the detection-kernel wrapper dispatches by device."""
 
 import ast
 import os
@@ -38,6 +39,10 @@ def test_import_leaves_jax_and_lora_tpu_out():
         "from lora_tpu_torch.io.udp import MessageSocketSink\n"
         "from lora_tpu_torch.io.sinks import MessageFileSink\n"
         "from lora_tpu_torch.native import SampleRing\n"
+        "from lora_tpu_torch.rx.receiver import ParityReceiver\n"
+        "from lora_tpu_torch.flowgraph import Flowgraph, StreamingLoRaReceiver, run_flowgraph\n"
+        "from lora_tpu_torch.debugger import SampleDebugger, live_analyze\n"
+        "lora_tpu_torch.ParityReceiver, lora_tpu_torch.Flowgraph, lora_tpu_torch.run_flowgraph\n"
         "SampleRing(64).close()\n"
         "maps = open('/proc/self/maps').read()\n"
         "assert 'libhost_io-' in maps and 'libloratpu_host' not in maps, 'host library'\n"
@@ -90,6 +95,37 @@ def test_receiver_defaults_to_the_card():
     assert DenseReceiver(cfg, demod_method="fft", device="cpu").device.type == "cpu"
 
 
+def test_parity_and_flowgraph_default_to_the_card(tmp_path):
+    """The parity engine, its facade, the flowgraph's receiver blocks and a
+    graph holding one take the card by default and raise without it."""
+    from lora_tpu_torch import Flowgraph, LoRaReceiver, ParityReceiver
+    from lora_tpu_torch.flowgraph import StreamingGateway, StreamingLoRaReceiver
+
+    cfg = LoRaConfig(sf=7, cr=4, samp_rate=1e6)
+    path = tmp_path / "x.cf32"
+    np.zeros(4096, np.complex64).tofile(path)
+    spec = {"blocks": [{"name": "src", "id": "file_source", "parameters": {"file": str(path)}},
+                       {"name": "rx", "id": "lora_receiver",
+                        "parameters": {"samp_rate": 1e6, "center_freq": 868e6,
+                                       "channel_list": [868.1e6]}}],
+            "connections": [["src", "0", "rx", "0"]]}
+    makers = [
+        lambda **kw: ParityReceiver(cfg, **kw),
+        lambda **kw: LoRaReceiver(1e6, 868e6, [868e6], 125e3, 7, engine="parity", **kw),
+        lambda **kw: StreamingLoRaReceiver(1e6, 868e6, [868.1e6], engine="parity", **kw),
+        lambda **kw: StreamingGateway(samp_rate=1e6, channels=4, sfs=(7,), **kw),
+        lambda **kw: Flowgraph(spec, **kw),
+    ]
+    for make in makers:
+        if torch.cuda.is_available():
+            continue
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    assert ParityReceiver(cfg, device="cpu").device.type == "cpu"
+    assert StreamingLoRaReceiver(1e6, 868e6, [868.1e6], engine="parity",
+                                 device="cpu").device.type == "cpu"
+
+
 def test_wrapper_cpu_tensor_takes_plain_version():
     rng = np.random.default_rng(3)
     xf = torch.from_numpy(rng.normal(size=(2, 2, 9 * 256)).astype(np.float32))
@@ -127,5 +163,11 @@ def test_package_exports():
     assert lora_tpu_torch.PolyphaseChannelizer is PolyphaseChannelizer
     assert lora_tpu_torch.PlanGateway is PlanGateway
     assert lora_tpu_torch.LoRaReceiver is LoRaReceiver
+    from lora_tpu_torch.flowgraph import Flowgraph, run_flowgraph
+    from lora_tpu_torch.rx.receiver import ParityReceiver
+
+    assert lora_tpu_torch.ParityReceiver is ParityReceiver
+    assert lora_tpu_torch.Flowgraph is Flowgraph
+    assert lora_tpu_torch.run_flowgraph is run_flowgraph
     with pytest.raises(AttributeError):
         lora_tpu_torch.NoSuchReceiver

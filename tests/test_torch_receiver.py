@@ -168,8 +168,13 @@ def test_fractional_decimation_matches_jax():
 
 
 def test_engines_and_device():
-    with pytest.raises(NotImplementedError, match="item 5"):
-        LoRaReceiver(1e6, CENTER, [CENTER], 125e3, 7, engine="parity", device="cpu")
+    from lora_tpu_torch.rx.receiver import ParityReceiver
+
+    par = LoRaReceiver(1e6, CENTER, [CENTER], 125e3, 7, engine="parity", device="cpu",
+                       max_frames=4)
+    dec = par._make_decoder()
+    assert isinstance(dec, ParityReceiver)
+    assert (dec.device.type, dec.max_frames) == ("cpu", 4)
     with pytest.raises(ValueError, match="engine"):
         LoRaReceiver(1e6, CENTER, [CENTER], 125e3, 7, engine="nope", device="cpu")
     if torch.cuda.is_available():

@@ -129,12 +129,13 @@ def test_suite_commands_match_jax(suites, tmp_path, capsys):
     assert jcli.main(["decode-file", meta]) == 0
     want = capsys.readouterr().out.splitlines()
     assert want == ["04 90 40 de ad be ef 80 ec"] * 5
-    for engine in ("golden", "dense"):
+    for engine in ("golden", "dense", "parity"):
         assert cli.main(["decode-file", meta, "--engine", engine, "--device", "cpu"]) == 0
         assert capsys.readouterr().out.splitlines() == want
     assert cli.main(["decode-file", str(tmp_path / "missing.cf32"), "--device", "cpu"]) == 2
-    with pytest.raises(NotImplementedError, match="item 5"):
-        cli.main(["testsuite", str(suites), "mini", "--engine", "parity", "--device", "cpu"])
+    assert cli.main(["testsuite", str(suites), "mini", "--engine", "parity", "--device", "cpu",
+                     "--nowrite", "--min-accuracy", "1.0"]) == 0
+    assert "Total payloads passed:    16 out of 16     (100.00%)" in capsys.readouterr().out
     assert not os.path.exists(tmp_path / "test-results")
 
 
