@@ -108,7 +108,23 @@ Phases, each of which passes or exits non-zero:
    plan gateway on stream (c)'s capture (its frames), one channel on the
    parity and golden engines (equal frames), a message-only graph on
    127.0.0.1, ``blocks`` (12 descriptors) and ``analyze --max-buffers 2``;
-15. each kernel's time beside its bound, its plain version's time and a
+15. sharding on the card (``phase_sharding``, ``lora_tpu_torch.parallel``),
+   counts zeroed just before each part's gated call, then its median wall
+   time over three calls: (a) channel sharding of the dense bench block
+   over 4 shards of the card (512/512, the lanes of one call over the
+   whole block); (b) time sharding of streaming (a)'s capture over 4
+   shards (every packet exactly once, those across seams too); (c)
+   wideband time sharding at M = 1024 over 4 shards of two halos each
+   (64/64 exactly once); (d) subband sharding at 10,240 channels (8 x
+   1280, SF6 implicit) over 8 shards, a packet on a central fine channel
+   of each band (8/8), its K4 launches split by filterbank (8 coarse, 8
+   fine); K4 at the coarse filterbank's shape against its plain version
+   and timed, and its scalar instantiation at M = 1; (e) the group code
+   path at world size 1: an NCCL group of one rank (its halo and exchange
+   local copies, NCCL initialised and one ``all_reduce`` run) running
+   (a)'s and (b)'s functions on a cut of their inputs, bit-equal to the
+   one-shard in-process mesh;
+16. each kernel's time beside its bound, its plain version's time and a
    library call's time where one computes the same function (the
    polyphase FIR at the wideband shape, float32 and bf16 out, and at the
    gateway's; the gateway's numbers also go into its ``kernels`` entry;
@@ -116,7 +132,9 @@ Phases, each of which passes or exits non-zero:
    plan's planes, whose numbers go into its entry's ``plan`` object; K1's
    launches a facade ``receive()`` go into its entry's ``facade`` object;
    K1, K3, K4 and K5 carry each graph's launches in a ``flowgraph``
-   object).
+   object; K1 and K4 their launches in each sharding part in a
+   ``sharding`` object, and K4 its coarse-filterbank timing in a
+   ``coarse`` object).
 
 The line before the last is the ``kernels`` JSON line; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -1662,7 +1680,7 @@ def print_pfb_times(label: str, st: dict, extra: str = "") -> None:
 def phase_kernel_times(rx, planes, launches, worst_err, receivers, xd_wide,
                        wide_launches, worst_fir, gw, xd_gw, gw_launches, worst_lag,
                        plans, worst_fused, variants, tools, worst_variants,
-                       facade_launches, graph_launches):
+                       facade_launches, graph_launches, shard_launches, coarse_fir):
     import torch
 
     from lora_tpu_torch.ops.cuda_kernels import (detection_metrics_kernel,
@@ -1795,6 +1813,8 @@ def phase_kernel_times(rx, planes, launches, worst_err, receivers, xd_wide,
         "facade": {str(c): n["det_metrics"] for c, n in facade_launches.items()},
         # launches in a flowgraph's run, by graph
         "flowgraph": {g: n["det_metrics"] for g, n in graph_launches.items()},
+        # launches in a sharded call, by part of phase_sharding
+        "sharding": {p: n["det_metrics"] for p, n in shard_launches.items()},
     }, {
         "name": "pfb_fir",
         "route": "cuda",
@@ -1810,6 +1830,11 @@ def phase_kernel_times(rx, planes, launches, worst_err, receivers, xd_wide,
         "gateway": {k: fir_gw[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                            "library_ms")} | {"launches": gw_launches["pfb_fir"]},
         "flowgraph": {g: n["pfb_fir"] for g, n in graph_launches.items()},
+        "sharding": {p: n["pfb_fir"] for p, n in shard_launches.items()},
+        # the subband path's coarse filterbank (M = 8, K = 13); its launches
+        # are those of the gated (d) call, split by filterbank
+        "coarse": {k: coarse_fir[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                              "library_ms", "launches")},
     }, {
         "name": "lag_rows",
         "route": "cuda",
@@ -3006,6 +3031,370 @@ def phase_flowgraph(smi_line, plan_stream):
     return launches
 
 
+# ------------------------------------------------------------- sharding
+def sharded_frames(res, block: int, sf: int = 0) -> list:
+    """Frames of a time-sharded result (every field with a leading shard
+    axis, ``[n, P]`` or ``[n, C, P]``): each valid lane's ``sample_index``
+    made global by its shard's offset ``shard * block``, its channel the
+    lane's row (0 for one stream), ``tap_header.sf`` = ``sf``."""
+    import numpy as np
+
+    from lora_tpu_torch.io.frames import Frame, PhyHeader
+
+    valid = res.valid.cpu().numpy()
+    pay, plen = res.payload.cpu().numpy(), res.length.cpu().numpy()
+    hdr, start = res.hdr.cpu().numpy(), res.start.cpu().numpy()
+    snr, cfo = res.snr.cpu().numpy(), res.cfo.cpu().numpy()
+    frames = []
+    for idx in map(tuple, np.argwhere(valid)):
+        f = Frame(phy_header=PhyHeader.from_bytes(bytes(hdr[idx])),
+                  payload=bytes(pay[idx][: plen[idx]]), snr=float(snr[idx]),
+                  channel=int(idx[1]) if valid.ndim == 3 else 0,
+                  sample_index=idx[0] * block + int(start[idx]), cfo=float(cfo[idx]))
+        f.tap_header.sf = sf
+        frames.append(f)
+    return frames
+
+
+def same_results(got, want, label: str, exact: bool = False) -> None:
+    """Two receiver results: every integer field bit-equal on every lane,
+    the payloads on the valid lanes; ``snr`` rtol 1e-5 and ``cfo`` atol 1
+    Hz on the valid lanes (the Phase B products may take other GEMM
+    algorithms at another batch size); ``exact``: every field bit-equal."""
+    import torch
+
+    valid = want.valid
+    for f in got._fields:
+        g, w = getattr(got, f), getattr(want, f)
+        check(g.shape == w.shape and g.dtype == w.dtype,
+              f"{label}: {f} {tuple(g.shape)} {g.dtype}, expected {tuple(w.shape)} {w.dtype}")
+        if exact or f not in ("payload", "snr", "cfo"):
+            ok = torch.equal(g, w)
+        elif f == "payload":
+            ok = torch.equal(g[valid], w[valid])
+        else:
+            tol = (1e-5 * w[valid].abs()) if f == "snr" else 1.0
+            ok = bool(((g[valid] - w[valid]).abs() <= tol).all())
+        check(ok, f"{label}: {f} differs")
+
+
+def seam_second_claims(frames, placements, block: int, n: int, sps: int, span: int,
+                       label: str):
+    """Split off the second claims of the reference's time sharding: a
+    packet whose preamble runs across a shard seam is claimed by the shard
+    it starts in and again by the next, one window (``sps``) past the seam,
+    where enough of its preamble remains to sync (JAX's sharded pipeline
+    does the same: ``ROADMAP.md`` section 3,
+    ``tests/test_torch_sharding.py``). A second claim is a frame at ``d *
+    block + sps`` with the channel and payload of a placement that starts
+    before seam ``d`` and runs across it (``span`` samples; the ring of
+    ``n`` blocks is circular: seam 0 is the capture's end, which the last
+    shard's halo continues from the capture's head), while another frame
+    claims that placement at its own place (within 3 symbols, as
+    ``stream_gate`` matches); each is printed as the known fault. Returns
+    the other frames."""
+    total = n * block
+
+    def first_claim(f, p):
+        return any(g is not f and g.channel == p[1] and abs(g.sample_index - p[2]) <= 3 * sps
+                   and g.payload[:len(p[3])] == p[3] for g in frames)
+
+    keep, second = [], []
+    for f in frames:
+        d, r = divmod(f.sample_index, block)
+        hit = [p for p in placements if r == sps and p[1] == f.channel
+               and 0 < (d * block - p[2]) % total < span and f.payload[:len(p[3])] == p[3]
+               and first_claim(f, p)]
+        (second if hit else keep).append((f, hit))
+    for f, hit in second:
+        print(f"{label}: KNOWN REFERENCE FAULT (ROADMAP.md section 3, time sharding): the "
+              f"packet placed at {hit[0][2]} on channel {f.channel} runs across the seam at "
+              f"{f.sample_index - sps} and is claimed again there, {f.payload.hex()}")
+    check(len({(f.channel, f.sample_index) for f, _ in second}) == len(second),
+          f"{label}: a seam claimed twice on one channel")
+    return [f for f, _ in keep]
+
+
+def pfb_launches_by_m(by_m: dict):
+    """A context in which every ``PolyphaseChannelizer.planes`` call adds
+    the ``pfb_fir`` launches it made to ``by_m[its M]``: a call's K4 count
+    split by filterbank, read from the wrapper's own count."""
+    import contextlib
+
+    from lora_tpu_torch.channelizer import PolyphaseChannelizer
+
+    planes = PolyphaseChannelizer.planes
+
+    def counted(self, *args, **kwargs):
+        before = counts(("pfb_fir",))["pfb_fir"]
+        try:
+            return planes(self, *args, **kwargs)
+        finally:
+            by_m[self.M] = by_m.get(self.M, 0) + counts(("pfb_fir",))["pfb_fir"] - before
+
+    @contextlib.contextmanager
+    def split():
+        PolyphaseChannelizer.planes = counted
+        try:
+            yield by_m
+        finally:
+            PolyphaseChannelizer.planes = planes
+
+    return split()
+
+
+def run_sharded(fn, x, label: str, want: dict, during=None):
+    """One call of the sharded ``fn(x)`` with every count zeroed just
+    before it and read just after (``want``: the launches it must make;
+    ``during``: a context around this call alone), then three timed calls
+    (wall ms between two synchronisations). Returns ``(result, launches,
+    median ms)``."""
+    import contextlib
+    import statistics
+
+    import torch
+
+    torch.cuda.synchronize()
+    zero_counts()
+    with during or contextlib.nullcontext():
+        res = fn(x)
+    torch.cuda.synchronize()
+    n = counts()
+    expect = {k: want.get(k, 0) for k in n}
+    ms = call_ms(lambda: fn(x), 3)
+    print(f"sharding {label}: launches {n}; wall {statistics.median(ms):.3f} ms (median of "
+          f"3: {', '.join(f'{t:.3f}' for t in ms)})")
+    check(n == expect, f"{label}: expected launches {expect}, got {n}")
+    return res, n, statistics.median(ms)
+
+
+def subband_10k_capture(n_dev: int, M_fine: int, cfg, L: int, chans, seed: int = 11):
+    """``__graft_entry__._dryrun_subband_10k``'s capture at ``n_dev *
+    M_fine`` fine channels, built on the card: ``L`` samples of noise
+    (sigma 1e-4 a part) and one packet on fine channel ``chans[b]`` of
+    every band ``b``, all two wideband symbols in, payload ``0x50 + b``,
+    upconverted with a float64 carrier phase. Returns planes ``[2, L]``."""
+    import dataclasses
+    import math
+
+    import torch
+
+    from lora_tpu_torch.parallel import subband_channel_freq
+    from lora_tpu_torch.tx.modulator import modulate_frame
+
+    wide_rate = n_dev * M_fine * cfg.samp_rate
+    wide_cfg = dataclasses.replace(cfg, samp_rate=wide_rate)
+    pos = 2 * wide_cfg.samples_per_symbol
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.view_as_complex(1e-4 * torch.randn((L, 2), generator=gen, device="cuda"))
+    for b, c in enumerate(chans):
+        pkt = torch.from_numpy(modulate_frame(wide_cfg, bytes([0x50 + b]), snr_db=None))
+        pkt = pkt.to("cuda", torch.complex128)
+        n = pkt.shape[0]
+        check(pos + n <= L, f"subband packet of {n} samples past the capture ({L})")
+        f = subband_channel_freq(wide_rate, n_dev, M_fine, b, c)
+        t = torch.arange(pos, pos + n, dtype=torch.float64, device="cuda")
+        cycles = torch.remainder(t * (f / wide_rate), 1.0)
+        x[pos:pos + n] += (pkt * torch.polar(torch.ones_like(cycles), 2.0 * math.pi * cycles)
+                           ).to(torch.complex64)
+        del pkt, t, cycles
+    return torch.stack([x.real, x.imag]).contiguous()
+
+
+def phase_sharding(cfg, x, expected, pkt_len, rx, xd, smi_line):
+    """(a)-(e) of the sharding package (``lora_tpu_torch.parallel``) on the
+    one card, each part's counts zeroed just before its gated call and read
+    just after, then timed (median of 3 wall ms): (a) channel sharding of
+    the dense bench block ``xd`` over 4 shards of the card; (b) time
+    sharding of streaming (a)'s capture over 4 shards; (c) wideband time
+    sharding at wideband-1024 over 4 shards; (d) subband sharding at
+    10,240 channels over 8 shards, its K4 launches split by filterbank; (e)
+    the group code path at world size 1 (an NCCL group of one rank, whose
+    halo and exchange are local copies; NCCL runs one ``all_reduce``)
+    against the one-shard in-process mesh, bit-equal. Also K4 at the coarse
+    filterbank's shape, and the scalar instantiation's pick at M = 1.
+    Returns ``(launches by part, the coarse K4 timing)``."""
+    import statistics
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from lora_tpu_torch import DenseReceiver, LoRaConfig, WidebandReceiver
+    from lora_tpu_torch.channelizer import PolyphaseChannelizer, firdes_low_pass
+    from lora_tpu_torch.ops.cuda_kernels import (_pfb_vector_width, pfb_fir_kernel,
+                                                 pfb_fir_planes)
+    from lora_tpu_torch.ops.xfer import pack_iq
+    from lora_tpu_torch.parallel import (channel_sharded_process, make_mesh,
+                                         time_sharded_process, wideband_subband_sharded_process,
+                                         wideband_time_sharded_process)
+
+    launches, ms = {}, {}
+    mesh4 = make_mesh(devices=["cuda:0"] * 4)
+    print(f"sharding: {mesh4!r} on {smi_line}")
+
+    # (a) channel sharding of the bench block: 16 channels a shard
+    fn_a = channel_sharded_process(rx, mesh4)
+    res, launches["a"], ms["a"] = run_sharded(fn_a, xd, "(a) channels", {"det_metrics": 4})
+    check(tuple(res.valid.shape) == (x.shape[0], rx.P), "(a) result shape")
+    check(gate(res, expected, "sharding (a)") == expected, f"(a): not {expected} frames")
+    one = rx.process_planes(xd)
+    same_results(res, one, "(a) against one process_planes")
+    one_ms = statistics.median(call_ms(lambda: rx.process_planes(xd), 3))
+    print(f"sharding (a): {int(res.valid.sum())}/{expected} placements, the lanes of one "
+          f"process_planes of the whole block (that call {one_ms:.3f} ms)")
+    del res, one
+
+    # (b) time sharding of streaming (a)'s capture, rolled by half a block
+    # and half a packet so that the seams fall inside rows of back-to-back
+    # packets (a block is 16 rows); the ring stays continuous: the roll's
+    # own join lies in the zeros between the last row and the first
+    stream, placements = dense_stream(x, pkt_len)
+    n4, B = 4, len(stream) // 4
+    shift = B // 2 + pkt_len // 2
+    stream = np.roll(stream, shift)
+    placements = [(sf, c, (i + shift) % len(stream), pl) for sf, c, i, pl in placements]
+    xs = pack_iq(stream)
+    # the main path's receiver has the same packet region (halo)
+    per_shard = [sum(d * B <= p[2] < (d + 1) * B + rx.pkt_samples for p in placements)
+                 for d in range(n4)]
+    P = 1024
+    check(max(per_shard) + 64 <= P, f"(b): {max(per_shard)} packets a shard for {P} lanes")
+    rx_t = DenseReceiver(cfg, max_candidates=P, max_symbols=24, sfd_search=12,
+                         demod_method="fft")
+    # a packet's signal: from its placement for pkt_len less the 2 x 4096
+    # samples of padding around it
+    seams = sum(any(0 < (d * B - p[2]) % len(stream) < pkt_len - 8192 for p in placements)
+                for d in range(n4))
+    print(f"sharding (b): {len(stream)} samples, {len(placements)} packets, blocks of {B}, "
+          f"halo {rx_t.pkt_samples}; max_candidates {P} for at most {max(per_shard)} packets "
+          f"a shard (block and halo); {seams} of {n4} seams (the ring's join included) with a "
+          f"packet across")
+    fn_b = time_sharded_process(rx_t, mesh4)
+    res, launches["b"], ms["b"] = run_sharded(fn_b, xs, "(b) time", {"det_metrics": 4})
+    check(tuple(res.valid.shape) == (n4, P), "(b) result shape")
+    check(seams >= 1, "(b): no packet across a seam")
+    frames = seam_second_claims(sharded_frames(res, B), placements, B, n4, rx.sps,
+                                pkt_len - 8192, "sharding (b)")
+    stream_gate(frames, placements, "sharding (b) time", lambda sf: rx.sps)
+    del res
+
+    # (c) wideband time sharding at wideband-1024
+    M = 1024
+    active = list(range(0, M, 16))
+    wcfg = LoRaConfig(sf=7, cr=4, samp_rate=250e3, crc=True)
+    wr = WidebandReceiver(wcfg, M, max_candidates=2, max_symbols=24, sfd_search=12,
+                          demod_method="fft")
+    halo = (wr.rx.pkt_samples + wr.pfb.K + 1) * M
+    unit = M * wr.rx.sps
+    blk = -(-2 * halo // unit) * unit
+    host, wplace, n_pkt = wideband_stream_capture(wcfg, M, active, 4 * blk, seed=12)
+    xw = pack_iq(host)
+    del host
+    seams = sum(any(p[2] * M < d * blk < p[2] * M + n_pkt for p in wplace) for d in range(1, 4))
+    print(f"sharding (c): L = {4 * blk} ({4 * blk // M} channel samples), blocks of {blk}, "
+          f"halo {halo} wideband samples ({blk / halo:.2f} halos a block), {len(wplace)} "
+          f"packets, {seams} of 3 seams with a packet across")
+    fn_c = wideband_time_sharded_process(wr, mesh4)
+    res, launches["c"], ms["c"] = run_sharded(fn_c, xw, "(c) wideband time",
+                                              {"det_metrics": 4, "pfb_fir": 4})
+    check(tuple(res.valid.shape) == (4, M, wr.rx.P), "(c) result shape")
+    check(seams >= 1, "(c): no packet across a seam")
+    frames = seam_second_claims(sharded_frames(res, blk // M, wcfg.sf), wplace, blk // M, 4,
+                                wr.rx.sps, n_pkt // M, "sharding (c)")
+    stream_gate(frames, wplace, "sharding (c) wideband time", lambda sf: wr.rx.sps)
+    del res, xw
+
+    # (d) subband sharding at 10,240 channels
+    n8, M_fine = 8, 1280
+    scfg = LoRaConfig(sf=6, cr=1, samp_rate=250e3, implicit=True, crc=False)
+    sr = WidebandReceiver(scfg, M_fine, pool=8, max_candidates=1, max_symbols=12,
+                          sfd_search=10, demod_method="fft")
+    sps = scfg.samples_per_symbol
+    step = n8 * n8 * M_fine
+    Ls = -(-(n8 * M_fine * (sr.rx.pkt_samples // sps + 16) * sps) // step) * step
+    chans = [7 + 41 * b for b in range(n8)]
+    xb = subband_10k_capture(n8, M_fine, scfg, Ls, chans)
+    mesh8 = make_mesh(devices=["cuda:0"] * n8)
+    fn_d = wideband_subband_sharded_process(sr, mesh8)
+    print(f"sharding (d): {n8} x {M_fine} = {n8 * M_fine} channels, L = {Ls} "
+          f"({xb.numel() * 4 / 1e9:.3f} GB float32), packets on fine channels {chans}")
+    by_m = {}
+    res, launches["d"], ms["d"] = run_sharded(fn_d, xb, "(d) subband 10k",
+                                              {"det_metrics": n8, "pfb_fir": 2 * n8},
+                                              during=pfb_launches_by_m(by_m))
+    print(f"sharding (d): pfb_fir launches of the gated call by filterbank M {by_m} "
+          f"(coarse M = {n8}, fine M = {M_fine})")
+    check(by_m == {n8: n8, M_fine: n8},
+          f"(d): pfb_fir launches by filterbank {by_m}, not {n8} coarse and {n8} fine")
+    check(tuple(res.valid.shape) == (n8, sr.pool), "(d) result shape")
+    valid = res.valid.cpu().numpy()
+    chan, pay = res.channel.cpu().numpy(), res.payload.cpu().numpy()
+    drops = res.n_dropped.cpu().numpy()
+    hit = [any(chan[b, g] == chans[b] and pay[b, g, 0] == 0x50 + b
+               for g in np.nonzero(valid[b])[0]) for b in range(n8)]
+    print(f"sharding (d): {sum(hit)}/{n8} bands decode their packet; valid lanes by band "
+          f"{valid.sum(axis=1).tolist()}; n_dropped by band {drops.tolist()}")
+    check(all(hit), f"(d): bands {[b for b in range(n8) if not hit[b]]} missed their packet")
+    check((drops >= 0).all(), "(d): negative n_dropped")
+
+    # K4 at the coarse filterbank's shape (M = n_dev, K = 13) on a shard's
+    # block and halo, and the scalar pick at M = 1
+    wide_rate = sr.wide_rate * n8
+    coarse = PolyphaseChannelizer(n8, firdes_low_pass(1.0, wide_rate, 0.42 * wide_rate / n8,
+                                                      wide_rate / n8 / 5.0))
+    ext = xb[:, : Ls // n8 + (coarse.K + 1) * n8].contiguous()
+    got = pfb_fir_kernel(ext, coarse._h)
+    check(torch.equal(got, pfb_fir_planes(ext, coarse._h)), "K4 at the coarse shape differs")
+    st = pfb_times(ext, coarse._h, torch.float32)
+    st["launches"] = by_m[n8]
+    print_pfb_times(f"coarse M={n8}", st, f"vector width {_pfb_vector_width(ext, coarse._h, got)}"
+                    f", launches in the gated (d) call {by_m[n8]} (and {by_m[M_fine]} fine)")
+    one_taps = firdes_low_pass(1.0, 1.0, 0.42, 0.2)
+    c1 = PolyphaseChannelizer(1, one_taps)
+    x1 = xb[:, :4096].contiguous()
+    out1 = torch.empty((4096 - c1.K + 1, 2, 1), device="cuda")
+    width = _pfb_vector_width(x1, c1._h, out1)
+    got1 = pfb_fir_kernel(x1, c1._h, out=out1)
+    check(width == 1 and torch.equal(got1, pfb_fir_planes(x1, c1._h)),
+          f"K4 at M = 1: vector width {width}, or not its plain version")
+    print(f"pfb_fir at M = 1 (world size 1's coarse filterbank, K = {c1.K}): the scalar "
+          f"instantiation (width {width}), bit-equal to its plain version")
+    del res, xb, ext, got, got1
+
+    # (e) the group code path at world size 1: an NCCL group of one rank
+    # runs (a)'s and (b)'s functions on a cut of their inputs, bit-equal to
+    # the in-process one-shard mesh. At one rank the halo and the band
+    # exchange are local copies: NCCL is initialised and runs one
+    # all_reduce, but no transfer of the port's goes over it
+    one_mesh = make_mesh(devices=["cuda:0"])
+    cut_a, cut_b = xd[:8], xs[:, : len(stream) // 8]
+    want = {"a": channel_sharded_process(rx, one_mesh)(cut_a),
+            "b": time_sharded_process(rx_t, one_mesh)(cut_b)}
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        group_mesh = make_mesh(group=dist.group.WORLD)
+        print(f"sharding (e): {group_mesh!r}, backend {dist.get_backend()}")
+        fn_e = {"a": channel_sharded_process(rx, group_mesh),
+                "b": time_sharded_process(rx_t, group_mesh)}
+        for k, cut in (("a", cut_a), ("b", cut_b)):
+            res, launches[f"e{k}"], ms[f"e{k}"] = run_sharded(
+                fn_e[k], cut, f"(e) NCCL world size 1, ({k})'s function", {"det_metrics": 1})
+            same_results(res, want[k], f"(e) ({k})", exact=True)
+            # NCCL's one collective here: the frames summed over the group
+            total = res.valid.sum(dtype=torch.int64)
+            dist.all_reduce(total, group=group_mesh.group)
+            check(int(total) == int(res.valid.sum()), f"(e) ({k}): all_reduce {int(total)}")
+            print(f"sharding (e) ({k}): {int(total)} frames (summed over the group by "
+                  f"all_reduce), every field bit-equal to the one-shard mesh")
+    finally:
+        dist.destroy_process_group()
+    del xs, want
+    torch.cuda.empty_cache()
+    print("sharding: median wall ms by part " + json.dumps({k: round(v, 3) for k, v in ms.items()}))
+    return launches, st
+
+
 def main() -> int:
     import torch
 
@@ -3085,9 +3474,13 @@ def main() -> int:
     graph_launches = phase_flowgraph(smi_line, plan_stream)
     del plan_stream
     stamp("phase_flowgraph")
+    shard_launches, coarse_fir = phase_sharding(cfg, x, expected, pkt_len, rx,
+                                                planes[torch.float32], smi_line)
+    stamp("phase_sharding")
     phase_kernel_times(rx, planes, launches, worst, receivers, xd_wide, wide_launches,
                        worst_fir, gw, xd_gw, gw_launches, worst_lag, plans, worst_fused,
-                       variants, tools, worst_variants, facade_launches, graph_launches)
+                       variants, tools, worst_variants, facade_launches, graph_launches,
+                       shard_launches, coarse_fir)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -45,8 +45,18 @@ Ported so far:
 - the flowgraph layer (``flowgraph``: ``Flowgraph``, ``run_flowgraph``,
   the block registry, ``StreamingLoRaReceiver`` and ``StreamingGateway``),
   the sample debugger (``debugger``), and the ``flowgraph``, ``blocks``
-  and ``analyze`` commands.
+  and ``analyze`` commands;
+- multi-device scale-out (``parallel``: ``make_mesh``,
+  ``channel_sharded_process``, ``time_sharded_process``,
+  ``wideband_time_sharded_process``, ``wideband_subband_sharded_process``,
+  ``subband_channel_freq``): channel, time, wideband-time and subband
+  sharding over a mesh of shards in one process or one a rank of a
+  ``torch.distributed`` group.
 """
+
+_PARALLEL = ("make_mesh", "channel_sharded_process", "time_sharded_process",
+             "wideband_time_sharded_process", "wideband_subband_sharded_process",
+             "subband_channel_freq")
 
 __version__ = "0.1.0"
 
@@ -83,6 +93,10 @@ def __getattr__(name):  # lazy: the receivers pull in torch
         from . import flowgraph
 
         return getattr(flowgraph, name)
+    if name in _PARALLEL:
+        from . import parallel
+
+        return getattr(parallel, name)
     if name == "PolyphaseChannelizer":
         from .channelizer import PolyphaseChannelizer
 

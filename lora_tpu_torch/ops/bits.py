@@ -13,6 +13,13 @@ from __future__ import annotations
 from ..tables import EXTRACT_DATA_INDICES, SHUFFLE_PATTERN
 
 
+def gray_encode(x):
+    """The rx gray step ``word = bin ^ (bin >> 1)`` (reference
+    lib/decoder_impl.cc:512, which calls it "decode"; it is the encode
+    direction)."""
+    return x ^ (x >> 1)
+
+
 def gray_decode(x, nbits: int):
     """Inverse of the rx gray step ``word = bin ^ (bin >> 1)`` (reference
     lib/decoder_impl.cc:512) for ``nbits``-wide values (tx side)."""

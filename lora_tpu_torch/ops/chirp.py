@@ -9,7 +9,8 @@ Reference ``lib/decoder_impl.cc``:
   on the host and only the result is cast to complex64.
 - ``instantaneous_frequency`` (:224-244): phase difference with +-pi
   unwrapping; output ``i`` holds ``phase[i+1]-phase[i]`` and the last
-  element repeats the one before.
+  element repeats the one before; ``instantaneous_phase`` (:246-257)
+  sums those steps.
 
 The tables are built with numpy (host, once per receiver);
 :func:`instantaneous_frequency` is the torch form used on the device.
@@ -56,6 +57,18 @@ def instantaneous_frequency(samples: torch.Tensor) -> torch.Tensor:
     d = torch.where(d > math.pi, d - 2.0 * math.pi, d)
     d = torch.where(d < -math.pi, d + 2.0 * math.pi, d)
     return torch.cat([d, d[..., -1:]], dim=-1).to(torch.float32)
+
+
+def instantaneous_phase(samples: torch.Tensor) -> torch.Tensor:
+    """Unwrapped phase (reference lib/decoder_impl.cc:246-257): complex64
+    ``[..., n]`` -> float32 ``[..., n]``, ``angle(x[0])`` plus the running
+    sum of the wrapped phase steps."""
+    phase = torch.angle(samples)
+    d = phase[..., 1:] - phase[..., :-1]
+    d = torch.where(d > math.pi, d - 2.0 * math.pi, d)
+    d = torch.where(d < -math.pi, d + 2.0 * math.pi, d)
+    return torch.cat([phase[..., :1], phase[..., :1] + torch.cumsum(d, dim=-1)],
+                     dim=-1).to(torch.float32)
 
 
 def tiled_upchirp_ifreq(config: LoRaConfig) -> np.ndarray:

@@ -110,6 +110,36 @@ def payload_symbol_budget(length_with_crc: torch.Tensor, cr: torch.Tensor,
     return (torch.ceil(symbols_needed / spb) * spb).to(torch.int32)
 
 
+def decode_payload(codewords: torch.Tensor, n_valid: torch.Tensor,
+                   cr: torch.Tensor) -> torch.Tensor:
+    """The step-by-step payload decode (reference decode(false),
+    :569-706) that :func:`decode_payload_lut` fuses: deshuffle, dewhiten,
+    then Hamming (CR 4/7-4/8) or data-bit extraction (CR 4/5-4/6), on
+    ``codewords``' device.
+
+    ``codewords`` int32 ``[..., CW]``; ``n_valid``, ``cr`` int32 ``[...]``.
+    Returns int32 ``[..., ceil(CW/2)]``; codewords at or past ``n_valid``
+    decode as a zero byte would (bytes past the payload length are
+    meaningless, as in the reference)."""
+    dev = codewords.device
+    CW = codewords.shape[-1]
+    idx = torch.arange(CW, dtype=torch.int32, device=dev)
+    deshuffled = bits.deshuffle(codewords) & 0xFF
+    t56, t78 = (torch.as_tensor(t, device=dev) for t in payload_prng(CW))
+    prng = torch.where((cr <= 2)[..., None], t56, t78)
+    dewhitened = torch.where(idx < n_valid[..., None], deshuffled ^ prng, 0)
+    if CW % 2:  # pad to an even codeword count for nibble pairing
+        dewhitened = torch.nn.functional.pad(dewhitened, (0, 1))
+    # CR 4/7-4/8: Hamming nibbles, (n0 << 4 | n1), then the nibble swap
+    nib = _ham_lut(dev)[dewhitened.long()]
+    b_ham = bits.swap_nibbles((nib[..., 0::2] << 4) | nib[..., 1::2])
+    # CR 4/5-4/6: the data bits, packed (second << 4 | first)
+    data = bits.extract_data_only(dewhitened)
+    b_raw = (data[..., 1::2] << 4) | data[..., 0::2]
+    crb = cr[..., None]
+    return torch.where(crb >= 3, b_ham, torch.where(crb >= 1, b_raw, 0)).to(torch.int32)
+
+
 def make_payload_nibble_lut(n_codewords: int) -> np.ndarray:
     """Fused deshuffle+dewhiten+FEC table for :func:`decode_payload_lut`.
 

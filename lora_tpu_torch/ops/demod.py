@@ -272,6 +272,17 @@ def combine_cfo(coarse_hz: torch.Tensor, frac_hz: torch.Tensor, sps: int,
     return (frac_hz + n * bin_hz).to(torch.float32)
 
 
+def determine_cfo_dechirp(window: torch.Tensor, downchirp: torch.Tensor,
+                          samp_rate: float) -> torch.Tensor:
+    """The reference's CFO probe (lib/decoder_impl.cc:729-738, whose
+    result nothing reads): the dechirped window's instantaneous frequency
+    at sample 256 (the last, for shorter windows), in Hz. ``window``
+    complex64 ``[..., n]``, ``downchirp`` ``[n]`` on its device."""
+    ifr = instantaneous_frequency(window * downchirp)
+    idx = min(256, ifr.shape[-1] - 1)
+    return (ifr[..., idx] / (2.0 * math.pi) * samp_rate).to(torch.float32)
+
+
 def downchirp_pearson(window: torch.Tensor, downchirp_ifreq: torch.Tensor,
                       sps: int) -> torch.Tensor:
     """Pearson correlation with the ideal downchirp ifreq over the first

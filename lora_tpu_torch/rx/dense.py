@@ -197,6 +197,13 @@ class DenseReceiver:
         low_snr_threshold=None,
         device=None,
     ):
+        # what a replica on another device is built from (parallel.sharding)
+        self.init_args = dict(
+            config=config, max_candidates=max_candidates, max_symbols=max_symbols,
+            sfd_search=sfd_search, demod_method=demod_method, fft_drift_pass=fft_drift_pass,
+            fast_sync=fast_sync, header_checksum=header_checksum,
+            detect_threshold=detect_threshold, low_snr=low_snr,
+            low_snr_threshold=low_snr_threshold)
         if demod_method == "auto":
             demod_method = ("fft" if config.implicit or config.decim_factor < 4
                             or low_snr else "gradient")

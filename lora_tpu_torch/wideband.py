@@ -123,6 +123,10 @@ class WidebandReceiver(_Channelized):
         **dense_kwargs,
     ):
         super().__init__(chan_config, num_channels, active_channels, plane_dtype, device)
+        # what a replica on another device is built from (parallel.sharding)
+        self.init_args = dict(chan_config=chan_config, num_channels=num_channels,
+                              active_channels=active_channels, pool=pool,
+                              plane_dtype=plane_dtype, **dense_kwargs)
         self.rx = DenseReceiver(chan_config, device=self.device, **dense_kwargs)
         self.pool = pool
         self._pad = self.rx.pkt_samples * self.M

@@ -3,9 +3,12 @@ dense receiver (both engines), wideband, multi-SF gateway and plan
 gateway receivers on the card against the port on the CPU, and the
 kernel studies; the receiver facade, implicit headers, ``low_snr`` and
 ``debug_trace`` against the CPU; the parity engine and one flowgraph
-receiver of each channelizer route against the CPU; and (``slow``) the
-13-suite accuracy matrix on the card, dense and parity engines
-(``LORA_TORCH_REPORTS=DIR`` keeps its reports).
+receiver of each channelizer route against the CPU; the four sharded
+functions on a 4-shard mesh of the card against a mesh of CPU shards, a
+CPU receiver on that mesh (a replica on the card) against a card
+receiver, and an NCCL group of one rank against the one-shard mesh; and
+(``slow``) the 13-suite accuracy matrix on the card, dense and parity
+engines (``LORA_TORCH_REPORTS=DIR`` keeps its reports).
 
 Every test here needs a CUDA device and skips without one. The file
 imports neither JAX nor the JAX package, so it runs where only torch is
@@ -41,6 +44,8 @@ from lora_tpu_torch.ops.cuda_kernels import (detection_metrics_kernel,
                                              pfb_fir_planes)
 from lora_tpu_torch.ops.xfer import pack_iq
 from lora_tpu_torch.tx.modulator import modulate_frame
+
+from test_torch_sharding_replica import same_sharded, sharding_cases
 
 pytestmark = pytest.mark.cuda
 
@@ -878,3 +883,62 @@ def test_suite_matrix_on_card(cuda_device, tmp_path, engine):
     rows = run_matrix(reports=reports, engine=engine, device="cuda")
     assert [r["suite"] for r in rows] == [s for s, _ in MATRIX]
     assert all(r["passed"] == r["total"] > 0 for r in rows), rows
+
+
+# ------------------------------------------------------------- sharding
+@pytest.mark.parametrize("case", ["channel", "time", "wideband time", "subband"])
+def test_sharded_on_card_matches_cpu_mesh(cuda_device, case):
+    """The function on a 4-shard in-process mesh of the one card against
+    the same mesh of CPU shards: integers and valid payloads bit-equal,
+    ``snr`` rtol 1e-4 (2e-4 through the two filterbanks of the subband
+    path), ``cfo`` atol 1 Hz; a packet decodes on each."""
+    from lora_tpu_torch.parallel import make_mesh
+
+    make, obj, x = sharding_cases(cuda_device)[case]
+    _, cpu_obj, _ = sharding_cases("cpu")[case]
+    got = make(obj, make_mesh(devices=["cuda:0"] * 4))(x.to(cuda_device))
+    want = make(cpu_obj, make_mesh(devices=["cpu"] * 4))(x)
+    assert got.valid.is_cuda and int(want.valid.sum()) > 0
+    same_sharded(got, want, 2e-4 if case == "subband" else 1e-4)
+
+
+@pytest.mark.parametrize("case", ["channel", "time", "wideband time", "subband"])
+def test_cpu_receiver_on_card_mesh_matches_card_receiver(cuda_device, case):
+    """A receiver built on the CPU, on a 4-shard mesh of the card: the
+    shards decode with a replica built on the card from its ``init_args``,
+    bit-equal on every field to the same mesh with a receiver built on the
+    card."""
+    from lora_tpu_torch.parallel import make_mesh
+    from lora_tpu_torch.parallel.sharding import _placed
+
+    make, obj, x = sharding_cases(cuda_device)[case]
+    _, cpu_obj, _ = sharding_cases("cpu")[case]
+    mesh = make_mesh(devices=["cuda:0"] * 4)
+    replica = _placed(cpu_obj, mesh)[mesh.devices[0]]
+    assert replica is not cpu_obj and replica.device == mesh.devices[0]
+    xd = x.to(cuda_device)
+    got, want = make(cpu_obj, mesh)(xd), make(obj, mesh)(xd)
+    assert got.valid.is_cuda and int(want.valid.sum()) > 0
+    for f in want._fields:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
+def test_nccl_world_size_one_matches_in_process_mesh(cuda_device):
+    """An NCCL group of one rank (every transfer a local copy): each
+    function bit-equal to the in-process one-shard mesh on the card."""
+    import torch.distributed as dist
+
+    from lora_tpu_torch.parallel import make_mesh
+
+    cases = sharding_cases(cuda_device)
+    want = {k: make(obj, make_mesh(devices=["cuda:0"]))(x) for k, (make, obj, x) in cases.items()}
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = make_mesh(group=dist.group.WORLD)
+        assert mesh.devices == (torch.device("cuda", torch.cuda.current_device()),)
+        for k, (make, obj, x) in cases.items():
+            got = make(obj, mesh)(x)
+            for f in got._fields:
+                assert torch.equal(getattr(got, f), getattr(want[k], f)), (k, f)
+    finally:
+        dist.destroy_process_group()

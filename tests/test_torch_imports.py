@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: it imports neither JAX nor the JAX
-package (the parity engine, the flowgraph and the debugger included), its
-entry points default to the card and refuse to fall back to the CPU, and
-the detection-kernel wrapper dispatches by device."""
+package (the parity engine, the flowgraph, the debugger and the sharding
+package included), its entry points (the mesh's default devices too)
+default to the card and refuse to fall back to the CPU, and the
+detection-kernel wrapper dispatches by device."""
 
 import ast
 import os
@@ -43,6 +44,10 @@ def test_import_leaves_jax_and_lora_tpu_out():
         "from lora_tpu_torch.flowgraph import Flowgraph, StreamingLoRaReceiver, run_flowgraph\n"
         "from lora_tpu_torch.debugger import SampleDebugger, live_analyze\n"
         "lora_tpu_torch.ParityReceiver, lora_tpu_torch.Flowgraph, lora_tpu_torch.run_flowgraph\n"
+        "from lora_tpu_torch.parallel import (make_mesh, channel_sharded_process,\n"
+        "    time_sharded_process, wideband_time_sharded_process,\n"
+        "    wideband_subband_sharded_process, subband_channel_freq)\n"
+        "lora_tpu_torch.make_mesh, lora_tpu_torch.wideband_subband_sharded_process\n"
         "SampleRing(64).close()\n"
         "maps = open('/proc/self/maps').read()\n"
         "assert 'libhost_io-' in maps and 'libloratpu_host' not in maps, 'host library'\n"
@@ -126,6 +131,19 @@ def test_parity_and_flowgraph_default_to_the_card(tmp_path):
                                  device="cpu").device.type == "cpu"
 
 
+def test_mesh_defaults_to_the_cards():
+    """``make_mesh()`` builds its mesh of the cards, and raises without
+    one rather than building a CPU mesh; a CPU mesh is asked for by name."""
+    from lora_tpu_torch.parallel import make_mesh
+
+    if torch.cuda.is_available():
+        assert {d.type for d in make_mesh().devices} == {"cuda"}
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make_mesh()
+    assert make_mesh(devices=["cpu"] * 2).devices == (torch.device("cpu"),) * 2
+
+
 def test_wrapper_cpu_tensor_takes_plain_version():
     rng = np.random.default_rng(3)
     xf = torch.from_numpy(rng.normal(size=(2, 2, 9 * 256)).astype(np.float32))
@@ -169,5 +187,12 @@ def test_package_exports():
     assert lora_tpu_torch.ParityReceiver is ParityReceiver
     assert lora_tpu_torch.Flowgraph is Flowgraph
     assert lora_tpu_torch.run_flowgraph is run_flowgraph
+    from lora_tpu_torch import parallel
+
+    for name in ("make_mesh", "channel_sharded_process", "time_sharded_process",
+                 "wideband_time_sharded_process", "wideband_subband_sharded_process",
+                 "subband_channel_freq"):
+        assert getattr(lora_tpu_torch, name) is getattr(parallel, name), name
+        assert f"``{name}``" in lora_tpu_torch.__doc__, name
     with pytest.raises(AttributeError):
         lora_tpu_torch.NoSuchReceiver

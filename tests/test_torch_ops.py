@@ -212,3 +212,65 @@ def test_cfo_matches_jax(clean_frame):
     cfo_j = jdemod.combine_cfo(co_j, frac_j, sps, sr, xp=jnp)
     np.testing.assert_allclose(cfo_t.numpy(), np.asarray(cfo_j), rtol=1e-4)
     np.testing.assert_allclose(cfo_t.numpy(), 210.0, atol=5.0)
+
+
+# ------------------------------------------------------- the last helpers
+def test_gray_encode_equals_jax():
+    from lora_tpu.ops import bits as jbits
+    from lora_tpu_torch.ops import bits
+
+    x = np.random.default_rng(3).integers(0, 1 << 12, (5, 97)).astype(np.int32)
+    want = np.asarray(jbits.gray_encode(jnp.asarray(x), xp=jnp))
+    np.testing.assert_array_equal(bits.gray_encode(torch.from_numpy(x)).numpy(), want)
+    np.testing.assert_array_equal(bits.gray_encode(x), want)
+    assert np.array_equal(bits.gray_decode(bits.gray_encode(x), 12), x)
+
+
+@pytest.mark.parametrize("CW", [7, 28, 55, 256])
+def test_decode_payload_equals_jax_and_lut(CW):
+    """The unfused decode bit-equal to JAX's, and the fused table decode
+    equal to it, for every CR, odd and even codeword counts and any
+    ``n_valid`` (tests/test_ops.py's cases)."""
+    rng = np.random.default_rng(42 + CW)
+    lut = torch.from_numpy(dec.make_payload_nibble_lut(CW))
+    cw = rng.integers(0, 1 << 12, size=(6, CW)).astype(np.int32)
+    n_valid = rng.integers(0, CW + 1, size=6).astype(np.int32)
+    for cr in range(5):
+        crv = np.full(6, cr, np.int32)
+        got = dec.decode_payload(torch.from_numpy(cw), torch.from_numpy(n_valid),
+                                 torch.from_numpy(crv))
+        want = jdec.decode_payload(jnp.asarray(cw), jnp.asarray(n_valid), jnp.asarray(crv),
+                                   xp=jnp)
+        assert got.dtype == torch.int32 and got.shape == (6, -(-CW // 2))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want), err_msg=f"cr {cr}")
+        fused = dec.decode_payload_lut(torch.from_numpy(cw & 0xFF), torch.from_numpy(n_valid),
+                                       torch.from_numpy(crv), lut)
+        np.testing.assert_array_equal(fused.numpy(), got.numpy(), err_msg=f"lut, cr {cr}")
+
+
+def test_instantaneous_phase_close_to_jax():
+    """float32 rounding: the running sum of up to 300 steps of at most pi,
+    summed in another order, within 1e-4 rad."""
+    rng = np.random.default_rng(1)
+    x = (rng.normal(size=(4, 300)) + 1j * rng.normal(size=(4, 300))).astype(np.complex64)
+    got = chirp.instantaneous_phase(torch.from_numpy(x)).numpy()
+    want = np.asarray(jchirp.instantaneous_phase(jnp.asarray(x), xp=jnp))
+    assert got.dtype == np.float32
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("n", [512, 200])
+def test_determine_cfo_dechirp_close_to_jax(clean_frame, n):
+    """The CFO probe on the frame's windows, each ``n`` samples (200:
+    shorter than the probe index, which then reads the last sample):
+    within float32 rounding of the phase step, 1e-5 rad, in Hz."""
+    cfg, sps, iq, tables = clean_frame
+    w = _windows(iq, [3 * sps + 17 + k * sps for k in range(6)], 2 * sps)[..., :n]
+    down = np.tile(tables["down"], 2)[:n]
+    got = demod.determine_cfo_dechirp(torch.from_numpy(w), torch.from_numpy(down),
+                                      cfg.samp_rate)
+    want = jdemod.determine_cfo_dechirp(jnp.asarray(w), jnp.asarray(down), cfg.samp_rate,
+                                        xp=jnp)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-5 / (2 * np.pi) * cfg.samp_rate)
