@@ -8,7 +8,13 @@ Phases, each of which passes or exits non-zero:
 1. the card: its name, and name + power limit from ``nvidia-smi``; the
    float32 matmul settings (TF32 off);
 2. build every kernel from ``lora_tpu_torch/csrc`` (six sources), one
-   ``nvcc`` per source, all started together;
+   ``nvcc`` per source, all started together; then, while the card's
+   memory is fresh, the bench (``phase_bench``): ``python -m
+   lora_tpu_torch.bench``, every stage of ``bench.py`` in its own
+   process, must exit 0 and print its nine metric lines once each, in
+   ``bench.py``'s order, with ``decode_ratio`` 1.0 and ``n_dropped`` 0
+   wherever they print; then ``python -m lora_tpu_torch.cli bench`` its
+   two dense lines; each line is printed behind ``bench:``;
 3. each kernel against its plain torch version on the card, float32 and
    bfloat16, at the main paths' shapes and at ragged and odd geometries
    (the polyphase FIR bit-equal, in its vector and scalar
@@ -254,6 +260,54 @@ def phase_build():
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  {name}: {line.strip()}")
+
+
+BENCH_METRICS = ("wideband_256ch_throughput", "wideband_1024ch_throughput",
+                 "wideband_4096ch_throughput", "gateway_256ch_6sf_throughput",
+                 "wideband_1024ch_full_occupancy_throughput",
+                 "plan_gateway_eu868_6sf_throughput", "plan_gateway_us915_6sf_throughput",
+                 "dense_rx_throughput_bf16", "dense_rx_throughput")
+
+
+def bench_command(args, timeout: float) -> list:
+    """``python -m *args`` from the repo root, in a session of its own that
+    is killed whole at ``timeout`` s: its stderr and every JSON line it
+    prints are printed; it must exit 0. Returns its JSON lines."""
+    import os
+    import signal
+    from pathlib import Path
+
+    label = " ".join(args)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", *args], cwd=Path(__file__).resolve().parent,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+    for line in err.splitlines():
+        print(f"  {label}: {line}")
+    lines = [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+    for rec in lines:
+        print(f"bench: {json.dumps(rec)}")
+    print(f"{label}: exit code {proc.returncode} in {time.perf_counter() - t0:.1f} s")
+    check(proc.returncode == 0, f"{label}: exit code {proc.returncode}")
+    for rec in lines:
+        check(rec.get("decode_ratio", 1.0) == 1.0 and rec.get("n_dropped", 0) == 0,
+              f"{label}: {rec}")
+    return lines
+
+
+def phase_bench() -> None:
+    """The bench command, every stage, then ``cli bench`` (its dense
+    stage at 64 channels): the metric names once each, in ``bench.py``'s
+    order."""
+    names = [r["metric"] for r in bench_command(["lora_tpu_torch.bench"], 600)]
+    check(names == list(BENCH_METRICS), f"bench: metrics {names}")
+    names = [r["metric"] for r in bench_command(["lora_tpu_torch.cli", "bench"], 120)]
+    check(names == list(BENCH_METRICS[-2:]), f"cli bench: metrics {names}")
 
 
 def phase_kernel_vs_plain() -> float:
@@ -3403,6 +3457,8 @@ def main() -> int:
     device_name, smi_line = phase_device()
     phase_build()
     stamp("phase_build")
+    phase_bench()
+    stamp("phase_bench")
     worst = phase_kernel_vs_plain()
     worst_fir = phase_pfb_vs_plain()
     worst_lag = phase_lag_vs_plain()

@@ -51,7 +51,10 @@ Ported so far:
   ``wideband_time_sharded_process``, ``wideband_subband_sharded_process``,
   ``subband_channel_freq``): channel, time, wideband-time and subband
   sharding over a mesh of shards in one process or one a rank of a
-  ``torch.distributed`` group.
+  ``torch.distributed`` group;
+- the bench (``bench``; ``python -m lora_tpu_torch.bench`` and the
+  ``bench`` command): the repo-root ``bench.py``'s throughput stages on
+  its captures, each gated strictly before it is timed.
 """
 
 _PARALLEL = ("make_mesh", "channel_sharded_process", "time_sharded_process",

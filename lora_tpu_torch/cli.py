@@ -16,6 +16,7 @@
                                          [--device cpu]
     python -m lora_tpu_torch.cli blocks [BLOCK]
     python -m lora_tpu_torch.cli analyze [--socket PATH] [--max-buffers N]
+    python -m lora_tpu_torch.cli bench [--channels N] [--device cpu]
 
 ``decode-file`` decodes a raw cf32 or SigMF capture through the receiver
 facade (``LoRaReceiver``) and prints one line a frame, as ``lora_tpu.cli
@@ -31,9 +32,13 @@ per-stage timing study (:func:`lora_tpu_torch.profiling.timing_table`).
 ``flowgraph`` runs a YAML flowgraph (:mod:`lora_tpu_torch.flowgraph`),
 ``blocks`` prints the block descriptors as YAML (those of ``lora_tpu.cli
 blocks``), and ``analyze`` runs the sample scope on a debugger socket
-(:func:`lora_tpu_torch.debugger.live_analyze`). Each runs on the card, or
-on the CPU with ``--device cpu`` (``gen-suite``, ``blocks`` and
-``analyze`` run on the host). ``lora_tpu.cli``'s ``bench`` is not ported.
+(:func:`lora_tpu_torch.debugger.live_analyze`). ``bench`` runs the dense
+throughput stage of :mod:`lora_tpu_torch.bench` at ``--channels``
+channels (64 by default) and prints its two JSON lines, bfloat16 then
+float32, as ``lora_tpu.cli bench`` does; ``python -m
+lora_tpu_torch.bench`` runs every stage. Each runs on the card, or on the
+CPU with ``--device cpu`` (``gen-suite``, ``blocks`` and ``analyze`` run
+on the host).
 """
 
 from __future__ import annotations
@@ -186,6 +191,13 @@ def cmd_gateway(args) -> int:
     return 0
 
 
+def cmd_bench(args) -> int:
+    from .bench import cli_main
+
+    return cli_main(["--dense-only", *([str(args.channels)] if args.channels else []),
+                     *(["--device", args.device] if args.device else [])])
+
+
 def cmd_timings(args) -> int:
     from .profiling import timing_table
 
@@ -325,6 +337,11 @@ def main(argv=None) -> int:
     gw.add_argument("--layer", type=int, default=2)
     gw.add_argument("--device", default=None, help=device_help)
     gw.set_defaults(fn=cmd_gateway)
+
+    b = sub.add_parser("bench", help="run the throughput benchmark (the dense stage)")
+    b.add_argument("--channels", type=int, default=None)
+    b.add_argument("--device", default=None, help=device_help)
+    b.set_defaults(fn=cmd_bench)
 
     tm = sub.add_parser(
         "timings", help="per-stage timing study (parity with examples/lora-timings)")

@@ -20,17 +20,22 @@ from ..device import resolve_device
 
 
 def pack_iq(x, dtype=torch.float32, device=None) -> torch.Tensor:
-    """Host complex ``[..., L]`` -> ``dtype`` planes ``[..., 2, L]`` on
-    ``device`` (``None``: the card). The complex64 block is moved once
-    and split on the device; float32 -> bfloat16 rounds to nearest even,
-    as numpy's bfloat16 cast does."""
+    """Complex ``[..., L]`` (host array, or a tensor on any device) ->
+    ``dtype`` planes ``[..., 2, L]`` on ``device`` (``None``: the card).
+    The complex64 block is moved once and split on the device; float32 ->
+    bfloat16 rounds to nearest even, as numpy's bfloat16 cast does."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"pack_iq packs float32 or bfloat16 planes, not {dtype}")
-    x = np.asarray(x)
-    if not np.iscomplexobj(x):
-        raise TypeError("pack_iq expects a complex array")
-    t = torch.from_numpy(np.ascontiguousarray(x, dtype=np.complex64))
-    t = t.to(resolve_device(device))
+    if isinstance(x, torch.Tensor):
+        if not x.is_complex():
+            raise TypeError("pack_iq expects a complex array")
+        t = x.to(resolve_device(device), torch.complex64)
+    else:
+        x = np.asarray(x)
+        if not np.iscomplexobj(x):
+            raise TypeError("pack_iq expects a complex array")
+        t = torch.from_numpy(np.ascontiguousarray(x, dtype=np.complex64))
+        t = t.to(resolve_device(device))
     return torch.stack([t.real, t.imag], dim=-2).to(dtype).contiguous()
 
 

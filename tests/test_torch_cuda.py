@@ -6,7 +6,8 @@ kernel studies; the receiver facade, implicit headers, ``low_snr`` and
 receiver of each channelizer route against the CPU; the four sharded
 functions on a 4-shard mesh of the card against a mesh of CPU shards, a
 CPU receiver on that mesh (a replica on the card) against a card
-receiver, and an NCCL group of one rank against the one-shard mesh; and
+receiver, and an NCCL group of one rank against the one-shard mesh; each
+stage of ``lora_tpu_torch.bench`` at a small size against the CPU; and
 (``slow``) the 13-suite accuracy matrix on the card, dense and parity
 engines (``LORA_TORCH_REPORTS=DIR`` keeps its reports).
 
@@ -942,3 +943,32 @@ def test_nccl_world_size_one_matches_in_process_mesh(cuda_device):
                 assert torch.equal(getattr(got, f), getattr(want[k], f)), (k, f)
     finally:
         dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------- bench
+BENCH_SMALL = {
+    "dense": ("main", dict(n_channels=2, block_symbols=128)),
+    "wideband": ("main_wideband", dict(n_channels=16)),
+    "full occupancy": ("main_wideband_full", dict(n_channels=16)),
+    "gateway": ("main_gateway", dict(n_channels=8, sfs=(7, 8))),
+    "plan EU868": ("main_plan_gateway", dict(plan="EU868", sfs=(7, 8))),
+    "plan US915": ("main_plan_gateway", dict(plan="US915", sfs=(7, 8))),
+}
+
+
+@pytest.mark.parametrize("stage", sorted(BENCH_SMALL))
+def test_bench_stage_on_card_matches_cpu(cuda_device, stage):
+    """Each ``lora_tpu_torch.bench`` stage at a small size (one round of one
+    call), its capture upconverted on the card: both gates pass, and the
+    gated calls decode the same lanes (channel, start, payload; and SF) as
+    the same stage on the CPU, with the same metric names and ratios."""
+    from lora_tpu_torch import bench
+
+    name, kw = BENCH_SMALL[stage]
+    fn = getattr(bench, name)
+    got = fn(**kw, rounds=1, iters=1, device=cuda_device)
+    want = fn(**kw, rounds=1, iters=1, device="cpu")
+    assert got.lanes == want.lanes and all(len(lanes) > 0 for lanes in got.lanes)
+    keys = [{k: v for k, v in r.items() if k not in ("value", "vs_baseline")} for r in want.lines]
+    assert [{k: v for k, v in r.items() if k not in ("value", "vs_baseline")}
+            for r in got.lines] == keys
