@@ -18,7 +18,8 @@ Phases, each of which passes or exits non-zero:
 3. each kernel against its plain torch version on the card, float32 and
    bfloat16, at the main paths' shapes and at ragged and odd geometries
    (the polyphase FIR bit-equal, in its vector and scalar
-   instantiations, the gateway's shape included; the multi-lag kernel
+   instantiations and its wide and narrow tiles (M = 1-16 and 124), the
+   gateway's shape included; the multi-lag kernel
    also at both plan gateways' planes and on pitched views as the
    channelizer leaves them, through its 16-byte and scalar copies, sps =
    4096 in column chunks and lags past its ring, each launched twice,
@@ -124,8 +125,10 @@ Phases, each of which passes or exits non-zero:
    (64/64 exactly once); (d) subband sharding at 10,240 channels (8 x
    1280, SF6 implicit) over 8 shards, a packet on a central fine channel
    of each band (8/8), its K4 launches split by filterbank (8 coarse, 8
-   fine); K4 at the coarse filterbank's shape against its plain version
-   and timed, and its scalar instantiation at M = 1; (e) the group code
+   fine); K4 at the coarse filterbank's shape (M = 8) and on the same
+   planes at M = 4 and 1, each bit-equal to its plain version and timed
+   beside ``conv1d(groups=M)`` with its tile (Tc, G, S, shared bytes), and
+   its scalar instantiation at M = 1; (e) the group code
    path at world size 1: an NCCL group of one rank (its halo and exchange
    local copies, NCCL initialised and one ``all_reduce`` run) running
    (a)'s and (b)'s functions on a cut of their inputs, bit-equal to the
@@ -140,7 +143,7 @@ Phases, each of which passes or exits non-zero:
    K1, K3, K4 and K5 carry each graph's launches in a ``flowgraph``
    object; K1 and K4 their launches in each sharding part in a
    ``sharding`` object, and K4 its coarse-filterbank timing in a
-   ``coarse`` object).
+   ``coarse`` object, M = 4 and 1 in ``coarse_m4`` and ``coarse_m1``).
 
 The line before the last is the ``kernels`` JSON line; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -367,7 +370,10 @@ def phase_pfb_vs_plain() -> float:
     # branch tiles); n_vec off the step grid; K = 1 and 16; K = 37 (six
     # tap passes); n_vec = K (one output row); then the scalar
     # instantiation: L not a multiple of 4 samples, M = 1001 and 6, an odd
-    # plane stride
+    # plane stride; then the narrow tile (M = 1, 2, 4, 8, 16 at the coarse
+    # filterbank's K = 13, n_vec off its step grid; M = 8 on it; n_vec = K
+    # at M = 8 and 1; an odd plane stride at M = 8) and M = 124 (31 chunks
+    # of 4: a ragged 32-thread tile)
     f32_in = ((torch.float32, torch.float32), (torch.float32, torch.bfloat16))
     both = f32_in + ((torch.bfloat16, torch.float32), (torch.bfloat16, torch.bfloat16))
     geoms = [(1024, 24576, 10, 0, False, both), (4096, 24576, 10, 0, False, f32_in),
@@ -377,7 +383,12 @@ def phase_pfb_vs_plain() -> float:
              (256, 300, 16, 0, False, f32_in), (64, 400, 37, 0, False, both),
              (512, 10, 10, 0, False, f32_in), (1024, 200, 10, 333, False, both),
              (1001, 300, 10, 0, False, both), (6, 5000, 10, 0, False, both),
-             (256, 400, 10, 0, True, both)]
+             (256, 400, 10, 0, True, both), (1, 90001, 13, 0, False, both),
+             (2, 40001, 13, 0, False, both), (4, 20001, 13, 0, False, both),
+             (8, 10001, 13, 0, False, both), (8, 256 * 40 + 12, 13, 0, False, both),
+             (16, 5001, 13, 0, False, both), (8, 13, 13, 0, False, both),
+             (1, 13, 13, 0, False, both), (8, 3001, 13, 0, True, both),
+             (124, 2000, 10, 0, False, both)]
     worst = 0.0
     for M, n_vec, K, tail, odd, pairs in geoms:
         L = n_vec * M + tail
@@ -1723,12 +1734,27 @@ def pfb_times(xd, h, dtype, kernel=None, n: int = 20) -> dict:
     return st
 
 
+def pfb_tile(xd, h, dtype) -> dict:
+    """The tile K4 takes on the planes ``xd`` with the taps ``h`` into
+    ``dtype`` (threads across, row groups, rows a step, shared bytes,
+    vector width), from the launcher itself, launching nothing."""
+    import torch
+
+    from lora_tpu_torch.ops.cuda_kernels import _pfb_lib, pfb_fir_geometry
+
+    out = torch.empty((1, 2, h.shape[1]), dtype=dtype, device=xd.device)
+    geo = pfb_fir_geometry(_pfb_lib(), xd, h, out)
+    return {k: geo[k] for k in ("Tc", "G", "S", "ring_bytes", "vec")}
+
+
 def print_pfb_times(label: str, st: dict, extra: str = "") -> None:
     print(f"pfb_fir {label} {st['shape']}: kernel {st['ms']:.4f} ms "
           f"({100 * st['bound_ms'] / st['ms']:.1f} % of the bound), plain "
           f"{st['plain_ms']:.4f} ms, conv1d(groups=M) {st['library_ms']:.4f} ms (max abs diff to "
           f"plain {st['lib_err']:.3g}), bound {st['bound_ms']:.4f} ms (bytes "
-          f"{st['t_bytes']:.4f}, ops {st['t_ops']:.4f})" + (f", {extra}" if extra else ""))
+          f"{st['t_bytes']:.4f}, ops {st['t_ops']:.4f})"
+          + (f", tile {st['geometry']}" if "geometry" in st else "")
+          + (f", {extra}" if extra else ""))
 
 
 def phase_kernel_times(rx, planes, launches, worst_err, receivers, xd_wide,
@@ -1766,9 +1792,11 @@ def phase_kernel_times(rx, planes, launches, worst_err, receivers, xd_wide,
     fir = {}
     for dtype, wr in receivers.items():
         fir[dtype] = pfb_times(xd_wide, wr.pfb._h, dtype)
+        fir[dtype]["geometry"] = pfb_tile(xd_wide, wr.pfb._h, dtype)
         print_pfb_times(f"wideband-{wr.M}", fir[dtype],
                         f"launches per process() {wide_launches[dtype]['pfb_fir']}")
     fir_gw = pfb_times(xd_gw, gw.pfb._h, gw.plane_dtype)
+    fir_gw["geometry"] = pfb_tile(xd_gw, gw.pfb._h, gw.plane_dtype)
     print_pfb_times(f"gateway-{gw.M}", fir_gw, f"launches per process() {gw_launches['pfb_fir']}")
     # K3 at the gateway's shape (the bf16 channel planes as the receiver
     # hands them over: the channelizer's pitched view) and at the US915
@@ -1881,14 +1909,19 @@ def phase_kernel_times(rx, planes, launches, worst_err, receivers, xd_wide,
         "bound_ms": sf["bound_ms"],
         "bound_by": sf["bound_by"],
         "library_ms": sf["library_ms"],
+        "geometry": sf["geometry"],
         "gateway": {k: fir_gw[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                           "library_ms")} | {"launches": gw_launches["pfb_fir"]},
+                                           "library_ms", "geometry")}
+        | {"launches": gw_launches["pfb_fir"]},
         "flowgraph": {g: n["pfb_fir"] for g, n in graph_launches.items()},
         "sharding": {p: n["pfb_fir"] for p, n in shard_launches.items()},
         # the subband path's coarse filterbank (M = 8, K = 13); its launches
-        # are those of the gated (d) call, split by filterbank
-        "coarse": {k: coarse_fir[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                              "library_ms", "launches")},
+        # are those of the gated (d) call, split by filterbank; then the same
+        # planes with the prototype at M = 4 and 1 (no launch on that path)
+        **{("coarse" if n == 8 else f"coarse_m{n}"): {
+            k: coarse_fir[n][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                          "library_ms", "launches", "geometry")}
+           for n in (8, 4, 1)},
     }, {
         "name": "lag_rows",
         "route": "cuda",
@@ -3266,8 +3299,9 @@ def phase_sharding(cfg, x, expected, pkt_len, rx, xd, smi_line):
     the group code path at world size 1 (an NCCL group of one rank, whose
     halo and exchange are local copies; NCCL runs one ``all_reduce``)
     against the one-shard in-process mesh, bit-equal. Also K4 at the coarse
-    filterbank's shape, and the scalar instantiation's pick at M = 1.
-    Returns ``(launches by part, the coarse K4 timing)``."""
+    filterbank's shape and on the same planes at M = 4 and 1, each with its
+    launch geometry, and the scalar instantiation's pick at M = 1. Returns
+    ``(launches by part, the coarse K4 timings by M)``."""
     import statistics
 
     import numpy as np
@@ -3393,17 +3427,29 @@ def phase_sharding(cfg, x, expected, pkt_len, rx, xd, smi_line):
     check((drops >= 0).all(), "(d): negative n_dropped")
 
     # K4 at the coarse filterbank's shape (M = n_dev, K = 13) on a shard's
-    # block and halo, and the scalar pick at M = 1
+    # block and halo, and at the same planes with the prototype at M = 4
+    # and 1 (the narrow tile); the scalar pick at M = 1 on a cut
     wide_rate = sr.wide_rate * n8
     coarse = PolyphaseChannelizer(n8, firdes_low_pass(1.0, wide_rate, 0.42 * wide_rate / n8,
                                                       wide_rate / n8 / 5.0))
     ext = xb[:, : Ls // n8 + (coarse.K + 1) * n8].contiguous()
-    got = pfb_fir_kernel(ext, coarse._h)
-    check(torch.equal(got, pfb_fir_planes(ext, coarse._h)), "K4 at the coarse shape differs")
-    st = pfb_times(ext, coarse._h, torch.float32)
-    st["launches"] = by_m[n8]
-    print_pfb_times(f"coarse M={n8}", st, f"vector width {_pfb_vector_width(ext, coarse._h, got)}"
-                    f", launches in the gated (d) call {by_m[n8]} (and {by_m[M_fine]} fine)")
+    coarse_fir = {}
+    for n in (n8, 4, 1):
+        rate = sr.wide_rate * n
+        cn = coarse if n == n8 else PolyphaseChannelizer(
+            n, firdes_low_pass(1.0, rate, 0.42 * rate / n, rate / n / 5.0))
+        got = pfb_fir_kernel(ext, cn._h)
+        check(torch.equal(got, pfb_fir_planes(ext, cn._h)),
+              f"K4 at the coarse shape, M = {n}, differs from its plain version")
+        st = pfb_times(ext, cn._h, torch.float32)
+        st["launches"] = by_m.get(n, 0)
+        st["geometry"] = pfb_tile(ext, cn._h, torch.float32)
+        coarse_fir[n] = st
+        print_pfb_times(f"coarse M={n}", st,
+                        f"launches in the gated (d) call {st['launches']}")
+        del got
+    print(f"pfb_fir coarse: launches in the gated (d) call {by_m[n8]} at M = {n8} (and "
+          f"{by_m[M_fine]} fine at M = {M_fine})")
     one_taps = firdes_low_pass(1.0, 1.0, 0.42, 0.2)
     c1 = PolyphaseChannelizer(1, one_taps)
     x1 = xb[:, :4096].contiguous()
@@ -3414,7 +3460,7 @@ def phase_sharding(cfg, x, expected, pkt_len, rx, xd, smi_line):
           f"K4 at M = 1: vector width {width}, or not its plain version")
     print(f"pfb_fir at M = 1 (world size 1's coarse filterbank, K = {c1.K}): the scalar "
           f"instantiation (width {width}), bit-equal to its plain version")
-    del res, xb, ext, got, got1
+    del res, xb, ext, got1
 
     # (e) the group code path at world size 1: an NCCL group of one rank
     # runs (a)'s and (b)'s functions on a cut of their inputs, bit-equal to
@@ -3446,7 +3492,7 @@ def phase_sharding(cfg, x, expected, pkt_len, rx, xd, smi_line):
     del xs, want
     torch.cuda.empty_cache()
     print("sharding: median wall ms by part " + json.dumps({k: round(v, 3) for k, v in ms.items()}))
-    return launches, st
+    return launches, coarse_fir
 
 
 def main() -> int:

@@ -80,6 +80,7 @@ class GateFailure(RuntimeError):
 class StageResult(NamedTuple):
     lines: list    # the metric records printed, in order
     lanes: tuple   # each gated call's valid lanes, on the host
+    rates: list    # each line's Msamples/s before rounding, in the order of ``lines``
 
 
 def _check(cond, msg: str) -> None:
@@ -385,18 +386,18 @@ def main(n_channels: int = 64, bf16: bool = True, block_symbols: int = 2048,
     xd = pack_iq(x, device=dev)
     lanes = [dense_gate(rx.process(xd), expected, "dense float32")]
     samples = x.size
-    lines = []
+    lines, rates = [], []
     if bf16:
         xb = pack_iq(x, dtype=torch.bfloat16, device=dev)
         lanes.append(dense_gate(rx.process(xb), expected, "dense bfloat16"))
-        msps = best_rate(rx.process, xb, samples, dev, rounds, iters, 150.0)
-        lines.append(_emit("dense_rx_throughput_bf16", msps,
+        rates.append(best_rate(rx.process, xb, samples, dev, rounds, iters, 150.0))
+        lines.append(_emit("dense_rx_throughput_bf16", rates[-1],
                            decode_ratio=round(len(lanes[-1]) / expected, 3)))
         del xb
     del x
-    lines.append(_emit("dense_rx_throughput",
-                       best_rate(rx.process, xd, samples, dev, rounds, iters, 150.0)))
-    return StageResult(lines, tuple(lanes))
+    rates.append(best_rate(rx.process, xd, samples, dev, rounds, iters, 150.0))
+    lines.append(_emit("dense_rx_throughput", rates[-1]))
+    return StageResult(lines, tuple(lanes), rates)
 
 
 def main_wideband(n_channels: int = 1024, rounds: int = 5, iters: int = 10,
@@ -415,7 +416,7 @@ def main_wideband(n_channels: int = 1024, rounds: int = 5, iters: int = 10,
     msps = best_rate(wr.process, xd, xd.shape[-1], dev, rounds, iters, 120.0)
     line = _emit(f"wideband_{M}ch_throughput", msps,
                  decode_ratio=round(good / len(active), 3))
-    return StageResult([line], (lanes,))
+    return StageResult([line], (lanes,), [msps])
 
 
 def main_gateway(n_channels: int = 256, sfs=GATEWAY_SFS, rounds: int = 5, iters: int = 5,
@@ -436,7 +437,7 @@ def main_gateway(n_channels: int = 256, sfs=GATEWAY_SFS, rounds: int = 5, iters:
     line = _emit(f"gateway_{M}ch_{len(sfs)}sf_throughput", msps,
                  decode_ratio=round(hit / max(1, len(expect)), 3),
                  demod_contexts=M * len(sfs))
-    return StageResult([line], (lanes,))
+    return StageResult([line], (lanes,), [msps])
 
 
 def main_plan_gateway(plan: str = "EU868", sfs=GATEWAY_SFS, rounds: int = 5, iters: int = 5,
@@ -455,7 +456,7 @@ def main_plan_gateway(plan: str = "EU868", sfs=GATEWAY_SFS, rounds: int = 5, ite
     msps = best_rate(gw.process, xd, xd.shape[-1], dev, rounds, iters, 120.0)
     line = _emit(f"plan_gateway_{plan.lower()}_{len(sfs)}sf_throughput", msps,
                  decode_ratio=round(hit / max(1, len(expect)), 3), channels=len(gw.channels))
-    return StageResult([line], (lanes,))
+    return StageResult([line], (lanes,), [msps])
 
 
 def main_wideband_full(n_channels: int = 1024, rounds: int = 5, iters: int = 5,
@@ -476,7 +477,7 @@ def main_wideband_full(n_channels: int = 1024, rounds: int = 5, iters: int = 5,
     msps = best_rate(wr.process, xd, xd.shape[-1], dev, rounds, iters, 120.0)
     line = _emit(f"wideband_{M}ch_full_occupancy_throughput", msps,
                  decode_ratio=round(good / M, 3), n_dropped=n_dropped)
-    return StageResult([line], (lanes,))
+    return StageResult([line], (lanes,), [msps])
 
 
 # ----------------------------------------------------------------- command

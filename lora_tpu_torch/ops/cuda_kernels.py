@@ -246,17 +246,44 @@ def _pfb_vector_width(xf: torch.Tensor, h_poly: torch.Tensor, out: torch.Tensor)
     return v
 
 
+def _pfb_args(xf, h_poly, out) -> list:
+    """``pfb_fir_launch``'s arguments but the stream, for ``out [R, 2, M]``."""
+    K, M = h_poly.shape
+    return [xf.data_ptr(), h_poly.data_ptr(), out.data_ptr(), M, K, xf.shape[-1] // M,
+            xf.stride(0), M, 2 * M, _DTYPE_CODE[xf.dtype], _DTYPE_CODE[out.dtype],
+            _pfb_vector_width(xf, h_poly, out)]
+
+
+PFB_GEOMETRY_KEYS = ("Tc", "G", "S", "ring_slots", "ring_rows", "ring_bytes", "blocks_per_sm",
+                     "runs", "col_tiles", "run_steps")
+
+
+def pfb_fir_geometry(lib, xf, h_poly, out) -> dict:
+    """The launch geometry ``lib``'s polyphase FIR kernel would take for
+    :func:`pfb_fir_launch` with the same arguments (``PFB_GEOMETRY_KEYS``:
+    threads across the branch tile, row groups, rows a step, the ring's
+    slots, rows and bytes, resident blocks an SM, the grid's runs and
+    column tiles, steps a run) and the vector width; launches nothing.
+    Raises ``RuntimeError`` where the launch would fail."""
+    fn = lib.pfb_fir_geometry
+    fn.argtypes = lib.pfb_fir_launch.argtypes[:-1] + [ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_int
+    geom = (ctypes.c_longlong * len(PFB_GEOMETRY_KEYS))()
+    args = _pfb_args(xf, h_poly, out)
+    with torch.cuda.device(xf.device):
+        rc = fn(*args, geom)
+    _check_rc(lib, "pfb_fir", rc)
+    return dict(zip(PFB_GEOMETRY_KEYS, geom)) | {"vec": args[-1]}
+
+
 def pfb_fir_launch(lib, xf, h_poly, out) -> None:
     """Launch ``lib``'s polyphase FIR kernel on checked CUDA tensors (see
     :func:`pfb_fir_kernel`) into ``out`` ``[R, 2, M]``, at the width
     :func:`_pfb_vector_width` picks, on the planes' device and its current
     stream; raises ``RuntimeError`` when the launch fails."""
-    K, M = h_poly.shape
     with torch.cuda.device(xf.device):  # the C entry launches on the current device
-        rc = lib.pfb_fir_launch(
-            xf.data_ptr(), h_poly.data_ptr(), out.data_ptr(), M, K, xf.shape[-1] // M,
-            xf.stride(0), M, 2 * M, _DTYPE_CODE[xf.dtype], _DTYPE_CODE[out.dtype],
-            _pfb_vector_width(xf, h_poly, out), torch.cuda.current_stream().cuda_stream)
+        rc = lib.pfb_fir_launch(*_pfb_args(xf, h_poly, out),
+                                torch.cuda.current_stream().cuda_stream)
     _check_rc(lib, "pfb_fir", rc)
 
 
@@ -281,8 +308,8 @@ def pfb_fir_kernel(xf: torch.Tensor, h_poly: torch.Tensor,
     by a copy); the others are left as they are. Raises on any other dtype,
     shape, layout or device, and when ``n_vec < K``; on the card a launch
     also raises ``RuntimeError`` for a K whose shared-memory row ring does
-    not fit (past 359 taps a branch for aligned float32 planes; the limits
-    are in ``csrc/pfb_fir.cu``).
+    not fit (past 359 taps a branch for aligned float32 planes at M > 64,
+    more at smaller M; the limits are in ``csrc/pfb_fir.cu``).
     """
     if not isinstance(xf, torch.Tensor) or not isinstance(h_poly, torch.Tensor):
         raise TypeError("pfb_fir_kernel takes torch tensors")

@@ -147,8 +147,11 @@ def test_stage_prints_bench_lines(capsys, stage):
     printed = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
     assert printed == res.lines
     assert [(r["metric"], list(r)) for r in printed] == want
-    for r in printed:
-        assert r["value"] > 0 and r["unit"] == "Msamples/s/chip"
+    assert len(res.rates) == len(printed)
+    # the rate measured is positive and printed as bench.py prints it (one
+    # decimal: a slow host call may print 0.0, so the unrounded rate is checked)
+    for r, rate in zip(printed, res.rates):
+        assert rate > 0 and r["value"] == round(rate, 1) and r["unit"] == "Msamples/s/chip"
         assert r["vs_baseline"] == r["value"]
         assert r.get("decode_ratio", 1.0) == 1.0 and r.get("n_dropped", 0) == 0
     assert all(len(lanes) > 0 for lanes in res.lanes)

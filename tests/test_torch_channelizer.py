@@ -214,6 +214,27 @@ def test_planes_match_jax(M, cap, extra, dtype):
         assert np.all(err <= allow)
 
 
+@pytest.mark.parametrize("n", [1, 4, 8])
+def test_coarse_filterbank_planes_match_jax(n):
+    """The subband path's coarse filterbank (``parallel/sharding.py``: the
+    prototype over ``n`` subbands, K = 13), whose branch FIR the polyphase
+    kernel's narrow tile runs on the card: the port's float32 planes
+    against lora_tpu's, whose FIR at ``M % 128 != 0`` is its jnp
+    shifted-slice sum (the Pallas kernel takes no such M)."""
+    rate = 250e3 * 1280 * n
+    spacing = rate / n
+    j = jch.PolyphaseChannelizer(n, jch.firdes_low_pass(1.0, rate, 0.42 * spacing,
+                                                        spacing / 5.0))
+    p = PolyphaseChannelizer(n, ch.firdes_low_pass(1.0, rate, 0.42 * spacing, spacing / 5.0),
+                             device="cpu")
+    assert p.K == j.K == 13
+    x = wideband(n, 12288 // n, extra=3)
+    want = np.asarray(j.planes(jnp.asarray(jpack_iq(x)))).astype(np.float32)
+    got = p.planes(pack_iq(x, device="cpu"))
+    assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
+    assert np.abs(got.numpy() - want).max() <= 2e-6 * np.abs(want).max()
+
+
 @pytest.mark.parametrize("M", [8, 64])
 def test_complex_path_matches_jax(M):
     x = wideband(M, 256)

@@ -212,10 +212,17 @@ def test_gradient_receiver_on_card_matches_cpu(cuda_device):
 # branch tiles (8, 1000), n_vec off the step grid (the last run not full),
 # K = 1, 16 and 37 (tap passes of 8, 4, 2 and 1), one output row; then the
 # scalar instantiation: L not a multiple of 4 samples (an unaligned plane
-# stride), M = 1001 and M = 6
+# stride), M = 1001 and M = 6; then the narrow tile (tiles of 2-32 threads,
+# both planes a block) at the coarse filterbank's K = 13: M = 1, 2, 4, 8
+# and 16 with n_vec off the step grid, M = 8 on it (256 rows a step for
+# float32 and bf16 planes), n_vec = K; and M = 124 (31 chunks of 4, a
+# ragged 32-thread tile)
 FIR_GEOMS = [(1024, 200, 10, 0), (256, 1500, 10, 0), (8, 700, 10, 0), (1000, 41, 10, 0),
              (128, 533, 10, 0), (256, 90, 1, 0), (256, 90, 16, 0), (64, 100, 37, 0),
-             (512, 10, 10, 0), (1024, 50, 10, 333), (1001, 40, 10, 0), (6, 700, 10, 0)]
+             (512, 10, 10, 0), (1024, 50, 10, 333), (1001, 40, 10, 0), (6, 700, 10, 0),
+             (1, 9001, 13, 0), (2, 4001, 13, 0), (4, 3001, 13, 0), (8, 1001, 13, 0),
+             (16, 601, 13, 0), (8, 256 * 4 + 12, 13, 0), (8, 13, 13, 0), (1, 13, 13, 0),
+             (124, 300, 10, 0)]
 
 
 @pytest.mark.parametrize("out", [torch.float32, torch.bfloat16])
@@ -250,6 +257,19 @@ def test_pfb_fir_kernel_reads_a_strided_view(cuda_device, stride, vector, in_dty
     assert torch.equal(pfb_fir_kernel(x, h, out), pfb_fir_planes(x, h, out))
 
 
+@pytest.mark.parametrize("out", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("in_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("stride,vector", [(8 * 900 + 8, True), (8 * 900 + 3, False)])
+def test_pfb_fir_kernel_reads_a_strided_view_at_m8(cuda_device, stride, vector, in_dtype, out):
+    """The narrow tile (M = 8) on planes cut from a longer buffer: an
+    aligned stride takes the vector instantiation, an odd one the scalar."""
+    x = torch.randn((2, stride), device=cuda_device).to(in_dtype)[:, :8 * 900]
+    h = torch.randn((13, 8), device=cuda_device)
+    assert _pfb_vector_width(x, h, torch.empty((1, 2, 8), dtype=out, device=cuda_device)) == (
+        16 // x.element_size() if vector else 1)
+    assert torch.equal(pfb_fir_kernel(x, h, out), pfb_fir_planes(x, h, out))
+
+
 def test_pfb_fir_kernel_writes_into_a_padded_buffer(cuda_device):
     x = torch.randn((2, 64 * 50), device=cuda_device)
     h = torch.randn((10, 64), device=cuda_device)
@@ -266,6 +286,22 @@ def test_pfb_fir_kernel_refuses_a_ring_past_shared_memory(cuda_device):
     for K, fits in ((359, True), (360, False)):
         x = torch.randn((2, 128 * (K + 3)), device=cuda_device)
         h = 0.01 * torch.randn((K, 128), device=cuda_device)
+        if fits:
+            assert torch.equal(pfb_fir_kernel(x, h), pfb_fir_planes(x, h))
+        else:
+            with pytest.raises(RuntimeError, match="pfb_fir launch failed"):
+                pfb_fir_kernel(x, h)
+
+
+@pytest.mark.parametrize("M,parent_k,limit", [(8, 359, 3199), (1, 1433, 28050)])
+def test_pfb_fir_kernel_narrow_tile_takes_the_parents_k(cuda_device, M, parent_k, limit):
+    """The narrow tile (float32 planes and output) launches, bit-equal, at
+    the largest K the 32-thread tile took at this M (359 at M = 8, 1,433 at
+    M = 1, scalar), and at its own limit with its row groups cut down; one
+    tap more is refused at launch."""
+    for K, fits in ((parent_k, True), (limit, True), (limit + 1, False)):
+        x = torch.randn((2, M * (K + 40)), device=cuda_device)
+        h = 0.01 * torch.randn((K, M), device=cuda_device)
         if fits:
             assert torch.equal(pfb_fir_kernel(x, h), pfb_fir_planes(x, h))
         else:
