@@ -1449,7 +1449,8 @@ def device_rows(fn, tries: int = 3):
     """Device time of one ``fn()`` call by kernel name (torch.profiler):
     ``(profiled call ms, [(name, ms, count)] largest first, [events a
     try])``. Device-side events only: an aten op's entry repeats its
-    kernels' time. The profiler can drop a call's device events (seen on
+    kernels' time, and so does a span's (``lora_tpu_torch.tracing``),
+    gaps included. The profiler can drop a call's device events (seen on
     the H100: a kernel of the call missing), so the call is profiled
     ``tries`` times and the try with the most device events is kept."""
     import torch
@@ -1462,7 +1463,8 @@ def device_rows(fn, tries: int = 3):
             prof_ms = call_ms(fn, 1)[0]
         rows = [(e.key, e.self_device_time_total / 1e3, e.count)
                 for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+                and not getattr(e, "is_user_annotation", False)]
         rows.sort(key=lambda r: -r[1])
         counts.append(sum(r[2] for r in rows))
         if best is None or counts[-1] > sum(r[2] for r in best[1]):

@@ -30,6 +30,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from . import tracing
 from .channelizer import (channelize_list_planes_factored, firdes_low_pass,
                           fused_mix_tables, fused_ramp_factors, make_fused_fir_matrix,
                           make_mixer_factors)
@@ -168,6 +169,7 @@ class PlanGateway:
             self._tables[key] = tuple(torch.as_tensor(t, device=self.device) for t in build())
         return self._tables[key]
 
+    @tracing.spanned("lora.channelize")
     def channel_planes(self, xf: torch.Tensor) -> torch.Tensor:
         """Packed wideband planes ``[2, L]`` float32 on the gateway's device
         -> channel planes ``[C, 2, n_out]`` float32, ``n_out = (L -
@@ -183,6 +185,7 @@ class PlanGateway:
             self.offsets, self.samp_rate, L))
         return channelize_list_planes_factored(xf, self.taps, outer, inner, self.decim)
 
+    @tracing.spanned("lora.gateway")
     def process_planes(self, xf: torch.Tensor) -> Dict[int, object]:
         """Packed wideband planes ``[2, L]`` on the gateway's device ->
         ``{sf: PooledResult [pool]}``. The channel planes are computed once
@@ -192,9 +195,10 @@ class PlanGateway:
         kernel gives the autocorrelation, not the dechirp metric): each SF
         detects on its own, as in JAX's gateway."""
         cp = self.channel_planes(xf)
-        if self.plane_dtype is not None:
-            cp = cp.to(self.plane_dtype)
-        cp = cp.contiguous()
+        with tracing.span("lora.cast"):
+            if self.plane_dtype is not None:
+                cp = cp.to(self.plane_dtype)
+            cp = cp.contiguous()
         if any(rx.low_snr for rx in self.rxs.values()):
             metrics = dict.fromkeys(self.sfs)
         else:

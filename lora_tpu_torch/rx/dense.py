@@ -61,6 +61,7 @@ from ..ops.chirp import (build_ideal_chirps, instantaneous_frequency,
                          instantaneous_frequency_np, tiled_upchirp_ifreq)
 from ..ops.cuda_kernels import detection_metrics_kernel
 from ..ops.xfer import pack_iq
+from ..tracing import spanned
 from .frontend import (candidate_starts, detection_metrics, detection_metrics_dechirp,
                        leak_suppression)
 
@@ -317,6 +318,7 @@ class DenseReceiver:
 
         return win
 
+    @spanned("lora.phaseb")
     def _decode_lane(self, win, collect: bool = False):
         """Phase B of every lane through the receiver's engine. With
         ``collect`` the result carries a dict of per-lane intermediates
@@ -630,6 +632,7 @@ class DenseReceiver:
         return torch.round(b_raw.to(torch.float32) + frac - lateness).to(torch.int32) \
             % self.n_bins
 
+    @spanned("lora.tail")
     def _finish_decode(self, words: torch.Tensor, sfd_ok: torch.Tensor):
         """Header parse + payload decode from words ``[N, 8+S]``."""
         cfg = self.cfg
@@ -675,6 +678,7 @@ class DenseReceiver:
         pay[:, :m] = torch.where(keep, decoded[:, :m], 0).to(torch.uint8)
         return pay
 
+    @spanned("lora.tail")
     def _finish_decode_implicit(self, words: torch.Tensor, ok: torch.Tensor,
                                 n_data: torch.Tensor):
         """Implicit-header tail from words ``[N, 8+S]``: no header parse;
@@ -794,6 +798,7 @@ class DenseReceiver:
             n_dropped=n_dropped,
         )
 
+    @spanned("lora.sf")
     def process_pooled_planes(self, xf: torch.Tensor, pool: int,
                               per_channel: int = 4, metrics=None) -> PooledResult:
         """Channel planes ``[C, 2, L]`` -> :class:`PooledResult`: Phase A
@@ -831,6 +836,7 @@ class DenseReceiver:
             corr, e1, _ = metrics
             return self._pooled(xf, corr, e1, per_channel, pool, 1.0)
 
+    @spanned("lora.pool")
     def _pool_lanes(self, e1: torch.Tensor, corr: torch.Tensor,
                     per_channel: int, pool: int, L: int):
         """Candidate compaction for the pooled path: the strongest ``pool``

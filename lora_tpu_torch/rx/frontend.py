@@ -28,6 +28,8 @@ from __future__ import annotations
 
 import torch
 
+from ..tracing import spanned
+
 LEAK_RATIO = 10.0 ** 3.5  # 35 dB: 5 dB guard under the >=40 dB sidelobe
                           # attenuation of the channel filters (53 dB
                           # Hamming designs), so only signals that CANNOT
@@ -217,6 +219,7 @@ def metrics_from_lag_rows(e: torch.Tensor, q_re: torch.Tensor, q_im: torch.Tenso
     return corr.to(torch.float32), e1, e2
 
 
+@spanned("lora.detect")
 def multi_sf_detection_metrics(xf: torch.Tensor, sps_by_sf: dict) -> dict:
     """``{sf: (corr, e1, e2)}`` for every SF of ``sps_by_sf`` (``{sf:
     samples_per_symbol}``) from one pass over packed IQ ``[..., 2, L]``:

@@ -29,6 +29,7 @@ from .io.frames import Frame, PhyHeader
 from .ops.xfer import pack_iq
 from .rx.dense import DenseReceiver
 from .rx.frontend import multi_sf_detection_metrics
+from .tracing import count, spanned
 
 
 def _frame(cfg: LoRaConfig, channel_freqs, chan: int, hdr, payload, snr,
@@ -41,17 +42,22 @@ def _frame(cfg: LoRaConfig, channel_freqs, chan: int, hdr, payload, snr,
     return f
 
 
+@spanned("lora.frames")
 def _frames_from_pooled(res, active, cfg: LoRaConfig, channel_freqs) -> List[Frame]:
     """Host-side Frame extraction from a :class:`PooledResult`, in lane
-    order."""
+    order. Counts, for ``cfg``'s SF, the pool lanes examined and the
+    valid ones (``frames.lanes.sf<N>``, ``frames.valid.sf<N>``)."""
     valid = res.valid.cpu().numpy()
+    hits = np.nonzero(valid)[0]
+    count(f"frames.lanes.sf{cfg.sf}", len(valid))
+    count(f"frames.valid.sf{cfg.sf}", len(hits))
     chan = res.channel.cpu().numpy()
     pay, plen = res.payload.cpu().numpy(), res.length.cpu().numpy()
     hdr, snr = res.hdr.cpu().numpy(), res.snr.cpu().numpy()
     start, cfo = res.start.cpu().numpy(), res.cfo.cpu().numpy()
     return [_frame(cfg, channel_freqs, int(active[int(chan[g])]), hdr[g],
                    pay[g][: plen[g]], snr[g], start[g], cfo[g])
-            for g in np.nonzero(valid)[0]]
+            for g in hits]
 
 
 class _Channelized:
