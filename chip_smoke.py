@@ -544,15 +544,23 @@ def fused_min_ops(C: int, D: int, n_taps: int, n_out: int) -> int:
     return C * n_out * (6 * D + 4 * n_taps)
 
 
-def fused_kernel_ops(C: int, D: int, n_taps: int, n_out: int) -> int:
-    """float32 operations the CUDA kernel (``csrc/fused_chan.cu``) issues,
-    an FMA counted as 2 (its factored form): the mix forms ``rho * phi``
-    and then ``x * (rho * phi)``, 8 FMA-pipe instructions a staged sample
-    and channel, over ``kT + J - 1`` staged rows a block of ``kT = 256``
-    outputs for each pass of ``J`` tap rows; the taps are ``2 D J`` FMAs a
-    channel, output and pass (the passes' padded rows included). Blocks
-    count whole; channel slots past ``C`` do not."""
+def fused_kernel_ops(C: int, D: int, n_taps: int, n_out: int, rows_per_run: int = 0) -> int:
+    """float32 operations a CUDA kernel of ``csrc/fused_chan.cu`` issues,
+    an FMA counted as 2. The first kernel (``rows_per_run`` 0): the mix
+    forms ``rho * phi`` and then ``x * (rho * phi)``, 8 FMA-pipe
+    instructions a staged sample and channel, over ``kT + J - 1`` staged
+    rows a block of ``kT = 256`` outputs for each pass of ``J`` tap rows;
+    the taps are ``2 D J`` FMAs a channel, output and pass (the passes'
+    padded rows included). Blocks count whole; channel slots past ``C`` do
+    not. The wide kernel (runs of ``rows_per_run`` rows, each completing
+    ``rows_per_run - K + 1`` outputs; its launch geometry says how long):
+    a channel and row take ``phi * x`` (4), the taps (``2 D K``, the padded
+    ones included) and the row ramp on each tap row's sum (``4 K``), and
+    each output the run's ramp phasor (4)."""
     K = -(-n_taps // D)
+    if rows_per_run:
+        runs = -(-n_out // (rows_per_run - K + 1))
+        return 2 * C * (runs * rows_per_run * (4 * D + 2 * D * K + 4 * K) + 4 * n_out)
     passes = -(-K // 16)
     J = -(-K // passes)
     tiles = -(-n_out // 256)
@@ -561,53 +569,91 @@ def fused_kernel_ops(C: int, D: int, n_taps: int, n_out: int) -> int:
     return 2 * C * (mix + taps)
 
 
+# the benchmark cell's channelizer (gwbench us915_64ch): 64 channels at
+# 902.3 + 0.2 n MHz around 908.6 MHz, 16 Msps, D = 64, 617 taps
+CELL_CHAN = (64, 64, 617)
+CELL_FREQS = (908.6e6, 16e6)
+
+
+def cell_offsets():
+    import numpy as np
+
+    return 902.3e6 + 0.2e6 * np.arange(64) - CELL_FREQS[0]
+
+
 def phase_fused_vs_plain() -> float:
-    """K5 against its plain version on the card, float32. Returns the
-    largest absolute error."""
+    """K5 against its plain version on the card, float32, on both of its
+    kernels: each geometry on planes the path rule sends to the wide
+    kernel where it takes them (16-byte aligned rows) and, for the cell's
+    and the US915 shape, again on the view ``x[:, 1:]``, which it sends to
+    the first kernel; the counters ``chan.k5.wide`` / ``chan.k5.narrow``
+    must name the kernel the rule picks. Returns the largest absolute
+    error."""
     import numpy as np
     import torch
 
+    from lora_tpu_torch import tracing
     from lora_tpu_torch.channelizer import firdes_low_pass, fused_tables
-    from lora_tpu_torch.ops.cuda_kernels import fused_channelize_kernel, fused_channelize_planes
+    from lora_tpu_torch.ops.cuda_kernels import (fused_chan_path, fused_channelize_kernel,
+                                                 fused_channelize_planes)
 
     gen = torch.Generator(device="cuda").manual_seed(2468)
-    # (C, D, taps, L): the EU868 and US915 plan shapes (their own taps);
-    # a ragged L; C = 1; D = 2; D = 1 (two passes of 16 tap rows); past the
-    # TPU kernel's gate (K = 151: ten passes; 2DK = 2016 with 63 tap rows:
-    # four); C = 9 (two channel groups) at D = 3
-    geoms = [(7, 8, 77, 3604480), (23, 32, 309, 14417920), (7, 8, 77, 100003),
-             (1, 4, 19, 4429), (3, 2, 9, 2100), (2, 1, 31, 3000), (2, 2, 301, 5000),
-             (3, 16, 1001, 40000), (9, 3, 20, 7777)]
+    # (C, D, taps, L, views): the cell's shape (its own taps and channels;
+    # a ragged L whose last run is partial); the EU868 and US915 plan
+    # shapes (their own taps); a ragged L; C = 1; D = 2; D = 1 (two passes
+    # of 16 tap rows); past the TPU kernel's gate (K = 151: ten passes; 2DK
+    # = 2016 with 63 tap rows: four); C = 9 (two channel groups) at D = 3
+    both = ("aligned", "offset")
+    geoms = [(*CELL_CHAN, 3840000, both), (*CELL_CHAN, 3840037, ("aligned",)),
+             (7, 8, 77, 3604480, ("aligned",)), (23, 32, 309, 14417920, both),
+             (7, 8, 77, 100003, ("aligned",)), (1, 4, 19, 4429, ("aligned",)),
+             (3, 2, 9, 2100, ("aligned",)), (2, 1, 31, 3000, ("aligned",)),
+             (2, 2, 301, 5000, ("aligned",)), (3, 16, 1001, 40000, ("aligned",)),
+             (9, 3, 20, 7777, ("aligned",))]
     worst = 0.0
-    for C, D, nt, L in geoms:
+    for C, D, nt, L, views in geoms:
         rate = D * 250e3
         offs = np.linspace(-0.4 * rate, 0.4 * rate, C)
-        if (C, D, nt) in ((7, 8, 77), (23, 32, 309)):
+        if (C, D, nt) in ((7, 8, 77), (23, 32, 309), CELL_CHAN):
             taps = firdes_low_pass(1.0, rate, 77.5e3, 62.5e3)
             check(len(taps) == nt, f"plan taps {len(taps)} != {nt}")
+            if (C, D, nt) == CELL_CHAN:
+                offs = cell_offsets()
         else:
             taps = np.random.default_rng(C * 100 + D).normal(0, 0.1, nt).astype(np.float32)
         g2, ramp, mix = fused_tables(offs, rate, taps, D, L, "cuda")
-        x = torch.randn((2, L), generator=gen, device="cuda")
-        before = fused_channelize_kernel.launches
-        got = fused_channelize_kernel(x, g2, ramp, D, nt, mix)
-        torch.cuda.synchronize()
-        check(fused_channelize_kernel.launches == before + 1,
-              "the fused_chan launch count did not rise")
-        ref = fused_channelize_planes(x, g2, ramp, D, nt, 1024)
-        shape = (C, 2, (L - nt) // D + 1)
-        check(tuple(got.shape) == shape and got.dtype == torch.float32 and got.is_contiguous(),
-              f"fused_chan: {tuple(got.shape)} {got.dtype}, expected {shape} float32")
-        check(bool(torch.isfinite(got).all()), "fused_chan: non-finite output")
-        scale = float(g2.abs().sum(1).max()) * float(x.abs().max())
-        tol = 2 * (g2.shape[1] + 4) * TOL_FUSED_ULPS * scale
-        err = float((got - ref).abs().max())
-        label = f"fused_chan C={C} D={D} taps={nt} K={-(-nt // D)} L={L}"
-        print(f"{label}: max abs err {err:.3g} ({err / scale:.3g} of sum|g2 row| * max|x|; "
-              f"tolerance {tol:.3g})")
-        check(err <= tol, f"{label}: error {err} > {tol}")
-        worst = max(worst, err)
-        del x, got, ref
+        for view in views:
+            # aligned: each plane on a 16-byte boundary, the pitch a multiple
+            # of 4 samples; offset: the view x[:, 1:]
+            pitch = -(-L // 4) * 4 + 4
+            x = (torch.randn((2, pitch), generator=gen, device="cuda")[:, :L] if view == "aligned"
+                 else torch.randn((2, L + 1), generator=gen, device="cuda")[:, 1:])
+            path = fused_chan_path(C, D, -(-nt // D), x.stride(0), x.data_ptr())
+            before, cnt = fused_channelize_kernel.launches, tracing.counters()
+            got = fused_channelize_kernel(x, g2, ramp, D, nt, mix)
+            torch.cuda.synchronize()
+            after = tracing.counters()
+            check(fused_channelize_kernel.launches == before + 1,
+                  "the fused_chan launch count did not rise")
+            check(after[f"chan.k5.{path}"] == cnt[f"chan.k5.{path}"] + 1
+                  and sum(after[f"chan.k5.{p}"] - cnt[f"chan.k5.{p}"]
+                          for p in ("wide", "narrow")) == 1,
+                  f"the chan.k5.{path} counter did not rise alone")
+            ref = fused_channelize_planes(x, g2, ramp, D, nt, 1024)
+            shape = (C, 2, (L - nt) // D + 1)
+            check(tuple(got.shape) == shape and got.dtype == torch.float32
+                  and got.is_contiguous(),
+                  f"fused_chan: {tuple(got.shape)} {got.dtype}, expected {shape} float32")
+            check(bool(torch.isfinite(got).all()), "fused_chan: non-finite output")
+            scale = float(g2.abs().sum(1).max()) * float(x.abs().max())
+            tol = 2 * (g2.shape[1] + 4) * TOL_FUSED_ULPS * scale
+            err = float((got - ref).abs().max())
+            label = f"fused_chan C={C} D={D} taps={nt} K={-(-nt // D)} L={L} {view} ({path})"
+            print(f"{label}: max abs err {err:.3g} ({err / scale:.3g} of sum|g2 row| * max|x|; "
+                  f"tolerance {tol:.3g})")
+            check(err <= tol, f"{label}: error {err} > {tol}")
+            worst = max(worst, err)
+            del x, got, ref
     torch.cuda.empty_cache()
     return worst
 
@@ -1759,6 +1805,114 @@ def print_pfb_times(label: str, st: dict, extra: str = "") -> None:
           + (f", {extra}" if extra else ""))
 
 
+def phase_fused_times(plans) -> dict:
+    """K5 timed at both plan shapes (the gateway's own tables for its
+    capture) and at the benchmark cell's (its channels and taps, a block
+    of 2^27 samples): each of its kernels in turns, narrow, wide, wide,
+    narrow (the best of each kernel's two readings), beside the plain
+    version, the library yardstick and the bound. Returns ``{shape:
+    stats}``, ``ms`` the time of the kernel the path rule takes; then both
+    kernels on each side of the path rule's thresholds."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from lora_tpu_torch.channelizer import firdes_low_pass, fused_tables
+    from lora_tpu_torch.device import full_f32_matmul
+    from lora_tpu_torch.ops.cuda_kernels import (_fused_lib, fused_chan_launch, fused_chan_path,
+                                                 fused_chan_wide_geometry,
+                                                 fused_channelize_kernel, fused_channelize_planes)
+
+    C, D, nt = CELL_CHAN
+    cell_gw = types.SimpleNamespace(channels=[0] * C, decim=D, taps=firdes_low_pass(
+        1.0, CELL_FREQS[1], 77.5e3, 62.5e3), offsets=cell_offsets(), samp_rate=CELL_FREQS[1],
+        _fused_tile=1024)
+    L = 2 ** 27
+    cell_x = torch.randn((2, L), generator=torch.Generator(device="cuda").manual_seed(5),
+                         device="cuda")
+    cell_g2, cell_ramp, cell_mix = fused_tables(cell_gw.offsets, CELL_FREQS[1], cell_gw.taps, D,
+                                                L, "cuda")
+    shapes = {plan: (pgw, xd, pgw._g2, pgw._tables[("fused", xd.shape[-1])], pgw._mix,
+                     plaunches["fused_chan"]) for plan, (pgw, xd, plaunches) in plans.items()}
+    shapes["cell"] = (cell_gw, cell_x, cell_g2, cell_ramp, cell_mix, None)
+    lib = _fused_lib()
+    fused = {}
+    for plan, (pgw, xd, g2, ramp, mix, plaunch) in shapes.items():
+        L = xd.shape[-1]
+        C, D, nt = len(pgw.channels), pgw.decim, len(pgw.taps)
+        K = -(-nt // D)
+        n_out = (L - nt) // D + 1
+        # operations: the least the function needs (fused_min_ops); bytes:
+        # the planes, the kernel's tables (taps, phases, ramp) read once,
+        # the output written once
+        t_ops = fused_min_ops(C, D, nt, n_out) / F32_FLOPS_PER_S * 1e3
+        t_bytes = (xd.numel() + sum(t.numel() for t in (*mix, *ramp))
+                   + C * 2 * n_out) * 4 / HBM_BYTES_PER_S * 1e3
+        rule = fused_chan_path(C, D, K, xd.stride(0), xd.data_ptr())
+        outs = {p: torch.empty((C, 2, n_out), device=xd.device) for p in ("narrow", "wide")}
+        runs = {p: (lambda p=p: fused_chan_launch(lib, xd, ramp, mix, D, nt, outs[p], p))
+                for p in outs}
+        geom = fused_chan_wide_geometry(lib, C, D, K, ramp[2].shape[-1], n_out, xd.device)
+        with full_f32_matmul():
+            lib_fn, lib_mag = fused_library_call(pgw, xd)
+            out = fused_channelize_kernel(xd, g2, ramp, D, nt, mix)
+            mag_err = float((torch.hypot(out[:, 0], out[:, 1]) - lib_mag).abs().max())
+            reps = 5 if plan == "cell" else 20
+            turns = {"narrow": [], "wide": []}
+            for p in ("narrow", "wide", "wide", "narrow"):
+                turns[p].append(cuda_ms(runs[p], reps))
+            paths_err = float((outs["narrow"] - outs["wide"]).abs().max())
+            st = dict(narrow_ms=min(turns["narrow"]), wide_ms=min(turns["wide"]), path=rule,
+                      plain_ms=cuda_ms(lambda: fused_channelize_planes(xd, g2, ramp, D, nt,
+                                                                       pgw._fused_tile), 3),
+                      library_ms=cuda_ms(lib_fn, reps),
+                      bound_ms=max(t_bytes, t_ops),
+                      bound_by="bytes" if t_bytes >= t_ops else "operations")
+            st["ms"] = st[f"{rule}_ms"]
+        fused[plan] = st
+        del out, outs, runs, lib_mag, lib_fn
+        issued = {"narrow": fused_kernel_ops(C, D, nt, n_out),
+                  "wide": fused_kernel_ops(C, D, nt, n_out, geom["rows_per_run"])}
+        rates = "; ".join(
+            f"{p} {st[p + '_ms']:.4f} ms (turns {', '.join(f'{t:.4f}' for t in turns[p])}; "
+            f"{100 * st['bound_ms'] / st[p + '_ms']:.1f} % of the bound, "
+            f"{issued[p] / fused_min_ops(C, D, nt, n_out):.2f}x the least flops at "
+            f"{100 * issued[p] / F32_FLOPS_PER_S * 1e3 / st[p + '_ms']:.1f} % of the float32 "
+            f"rate)" for p in ("narrow", "wide"))
+        print(f"fused_chan {plan} float32 at L={L} C={C} D={D} taps={nt} n_out={n_out}: {rates}; "
+              f"the rule takes {rule}; the two kernels within {paths_err:.3g}; wide geometry "
+              f"{geom}; plain {st['plain_ms']:.4f} ms, conv1d(stride=D, cuDNN TF32 off; no output "
+              f"ramp) {st['library_ms']:.4f} ms (its |out| within {mag_err:.3g} of the "
+              f"kernel's), bound {st['bound_ms']:.4f} ms (ops {t_ops:.4f}, bytes "
+              f"{t_bytes:.4f}), launches per process() {plaunch}")
+    del cell_x, cell_g2, cell_ramp, cell_mix, shapes
+    # the path rule's thresholds: both kernels in turns on each side of them
+    # (n_out = 450,551, K = 10, random taps, 16-byte aligned planes)
+    n_out = 450551
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    for C, D in ((16, 64), (17, 64), (16, 32), (20, 32), (16, 16), (24, 16), (32, 8), (64, 8)):
+        nt = 10 * D - 3
+        L = (n_out - 1) * D + nt
+        rate = D * 250e3
+        offs = np.linspace(-0.4 * rate, 0.4 * rate, C)
+        taps = np.random.default_rng(C + D).normal(0, 0.1, nt).astype(np.float32)
+        _, ramp, mix = fused_tables(offs, rate, taps, D, L, "cuda")
+        xd = torch.randn((2, -(-L // 4) * 4), generator=gen, device="cuda")[:, :L]
+        out = torch.empty((C, 2, n_out), device="cuda")
+        turns = {"narrow": [], "wide": []}
+        for p in ("narrow", "wide", "wide", "narrow"):
+            turns[p].append(cuda_ms(lambda p=p: fused_chan_launch(lib, xd, ramp, mix, D, nt, out, p),
+                                    20))
+        n, w = min(turns["narrow"]), min(turns["wide"])
+        print(f"fused_chan path rule at C={C} D={D} K=10 n_out={n_out}: narrow {n:.4f} ms, wide "
+              f"{w:.4f} ms ({w / n:.3f}x); the rule takes "
+              f"{fused_chan_path(C, D, 10, xd.stride(0), xd.data_ptr())}")
+        del xd, out, ramp, mix
+    torch.cuda.empty_cache()
+    return fused
+
+
 def phase_kernel_times(rx, planes, launches, worst_err, receivers, xd_wide,
                        wide_launches, worst_fir, gw, xd_gw, gw_launches, worst_lag,
                        plans, worst_fused, variants, tools, worst_variants,
@@ -1840,44 +1994,7 @@ def phase_kernel_times(rx, planes, launches, worst_err, receivers, xd_wide,
                   f"per-SF det_metrics launches K3 replaces (on the copy) {six_k1:.4f} ms")
             del cc
         del cp, rows
-    # K5 at both plan shapes: the gateway's own tables for its capture
-    from lora_tpu_torch.device import full_f32_matmul
-    from lora_tpu_torch.ops.cuda_kernels import fused_channelize_kernel, fused_channelize_planes
-
-    fused = {}
-    for plan, (pgw, xd, plaunches) in plans.items():
-        g2, mix, L = pgw._g2, pgw._mix, xd.shape[-1]
-        ramp = pgw._tables[("fused", L)]
-        C, D, nt = len(pgw.channels), pgw.decim, len(pgw.taps)
-        n_out = (L - nt) // D + 1
-        # operations: the least the function needs (fused_min_ops); bytes:
-        # the planes, the kernel's tables (taps, phases, ramp) read once,
-        # the output written once
-        t_ops = fused_min_ops(C, D, nt, n_out) / F32_FLOPS_PER_S * 1e3
-        t_bytes = (xd.numel() + sum(t.numel() for t in (*mix, *ramp))
-                   + C * 2 * n_out) * 4 / HBM_BYTES_PER_S * 1e3
-        with full_f32_matmul():
-            lib_fn, lib_mag = fused_library_call(pgw, xd)
-            out = fused_channelize_kernel(xd, g2, ramp, D, nt, mix)
-            mag_err = float((torch.hypot(out[:, 0], out[:, 1]) - lib_mag).abs().max())
-            st = dict(ms=cuda_ms(lambda: fused_channelize_kernel(xd, g2, ramp, D, nt, mix), 20),
-                      plain_ms=cuda_ms(lambda: fused_channelize_planes(xd, g2, ramp, D, nt,
-                                                                       pgw._fused_tile), 5),
-                      library_ms=cuda_ms(lib_fn, 20),
-                      bound_ms=max(t_bytes, t_ops),
-                      bound_by="bytes" if t_bytes >= t_ops else "operations")
-        fused[plan] = st
-        issued = fused_kernel_ops(C, D, nt, n_out)
-        del out, lib_mag, lib_fn
-        print(f"fused_chan {plan} float32 at L={L} C={C} D={D} taps={nt} n_out={n_out}: kernel "
-              f"{st['ms']:.4f} ms, plain {st['plain_ms']:.4f} ms, conv1d(stride=D, cuDNN TF32 "
-              f"off; no output ramp) {st['library_ms']:.4f} ms (its |out| within {mag_err:.3g} "
-              f"of the kernel's), bound {st['bound_ms']:.4f} ms (ops {t_ops:.4f}, bytes "
-              f"{t_bytes:.4f}; {100 * st['bound_ms'] / st['ms']:.1f} % of it), "
-              f"{issued / st['ms'] / 1e9:.1f} TFLOP/s of the kernel's own factored form "
-              f"({issued / fused_min_ops(C, D, nt, n_out):.2f}x the least flops; "
-              f"{100 * issued / F32_FLOPS_PER_S * 1e3 / st['ms']:.1f} % of the float32 rate), "
-              f"launches per process() {plaunches['fused_chan']}")
+    fused = phase_fused_times(plans)
     torch.cuda.empty_cache()
     print(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     st, sf = stats[torch.float32], fir[torch.float32]
@@ -1950,6 +2067,7 @@ def phase_kernel_times(rx, planes, launches, worst_err, receivers, xd_wide,
         "bound_ms": fused["US915"]["bound_ms"],
         "bound_by": fused["US915"]["bound_by"],
         "library_ms": fused["US915"]["library_ms"],
+        "paths": fused,
         "flowgraph": {g: n["fused_chan"] for g, n in graph_launches.items()},
     }] + [{
         "name": name,

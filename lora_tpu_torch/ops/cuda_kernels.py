@@ -12,8 +12,9 @@
   ``_pfb_fir_kernel``); its plain version is :func:`pfb_fir_planes`.
 - :func:`lag_rows_kernel` launches ``csrc/lag_rows.cu`` (the counterpart
   of ``_lag_rows_kernel``); its plain version is :func:`lag_rows_planes`.
-- :func:`fused_channelize_kernel` launches ``csrc/fused_chan.cu`` (the
-  counterpart of ``_fused_chan_kernel``); its plain version is
+- :func:`fused_channelize_kernel` launches one of the two kernels of
+  ``csrc/fused_chan.cu`` (the counterpart of ``_fused_chan_kernel``), as
+  :func:`fused_chan_path` picks; its plain version is
   :func:`fused_channelize_planes`.
 
 Each wrapper takes its plain version (re-exported here) only for a tensor
@@ -29,6 +30,7 @@ import math
 
 import torch
 
+from .. import tracing
 from ..channelizer import fused_channelize_planes, pfb_fir_planes  # noqa: F401  (plain versions)
 from ..channelizer import fused_out_len
 from ..rx.frontend import check_lags
@@ -454,13 +456,16 @@ lag_rows_kernel.launches = 0
 
 def bind_fused_lib(lib):
     """Declare the C entry points of a library built from
-    ``csrc/fused_chan.cu`` (the port's, or a tuning variant's); returns
-    ``lib``."""
-    return _bind(lib, "fused_chan",
-                 [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong]
-                 + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
-                 + [ctypes.c_longlong] + [ctypes.c_void_p] * 2
-                 + [ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p])
+    ``csrc/fused_chan.cu`` (the port's, or a tuning variant's: an older
+    source may lack the wide-plan entry); returns ``lib``."""
+    argtypes = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong]
+                + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+                + [ctypes.c_longlong] + [ctypes.c_void_p] * 2
+                + [ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p])
+    if hasattr(lib, "fused_chan_wide_launch"):
+        lib.fused_chan_wide_launch.argtypes = argtypes
+        lib.fused_chan_wide_launch.restype = ctypes.c_int
+    return _bind(lib, "fused_chan", argtypes)
 
 
 @functools.cache
@@ -470,17 +475,67 @@ def _fused_lib():
     return bind_fused_lib(load("fused_chan"))
 
 
-def fused_chan_launch(lib, xf, ramp, mix, decimation: int, n_taps: int, out) -> None:
-    """Launch ``lib``'s fused channelizer kernel on checked CUDA tensors
-    (see :func:`fused_channelize_kernel`) into ``out`` ``[C, 2, n_out]``,
-    on the planes' device and its current stream; raises
-    ``RuntimeError`` when the launch fails (also for a ``K`` past the
-    kernel's limit)."""
+# The wide-plan kernel's reach (csrc/fused_chan.cu): the tap rows it is
+# built for, the widest D timed against the first kernel (its shared memory
+# holds D <= 156), and the narrowest plans where it beats the first kernel
+# (chip_smoke.phase_fused_times, both kernels in turns; the source's note)
+FUSED_WIDE_K = (8, 10)
+FUSED_WIDE_MAX_D = 128
+FUSED_WIDE_MIN_C = 17
+FUSED_WIDE_MIN_D = 16
+
+
+def fused_chan_path(C: int, D: int, K: int, plane_stride: int, ptr: int) -> str:
+    """Which kernel of ``csrc/fused_chan.cu`` a launch takes for ``C``
+    channels, decimation ``D``, ``K`` tap rows and float32 planes whose
+    first sample lies at address ``ptr`` with ``plane_stride`` samples
+    between the planes: ``"wide"`` (a lane a channel, each tile staged
+    once by bulk copies) where every row of ``D`` samples is 16-byte
+    aligned (``D``, the stride and the address), ``K`` is one the kernel
+    is built for and the plan is wide enough that it wins, else
+    ``"narrow"`` (the first kernel, which takes any geometry)."""
+    if D % 4 or plane_stride % 4 or ptr % 16:
+        return "narrow"
+    if not FUSED_WIDE_K[0] <= K <= FUSED_WIDE_K[1] or D > FUSED_WIDE_MAX_D:
+        return "narrow"
+    return "wide" if C >= FUSED_WIDE_MIN_C and D >= FUSED_WIDE_MIN_D else "narrow"
+
+
+FUSED_WIDE_GEOMETRY_KEYS = ("rows_per_run", "outputs_per_run", "runs", "channel_warps",
+                            "grid_x", "grid_y", "blocks_per_sm", "smem_bytes")
+
+
+def fused_chan_wide_geometry(lib, C: int, D: int, K: int, tile: int, n_out: int,
+                             device=None) -> dict:
+    """The launch geometry ``lib``'s wide-plan kernel would take for ``C``
+    channels, decimation ``D``, ``K`` tap rows, the ramp's ``tile`` and
+    ``n_out`` outputs on ``device`` (``FUSED_WIDE_GEOMETRY_KEYS``);
+    launches nothing. Raises ``RuntimeError`` where the launch would
+    fail."""
+    fn = lib.fused_chan_wide_geometry
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_longlong, ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_int
+    geom = (ctypes.c_longlong * len(FUSED_WIDE_GEOMETRY_KEYS))()
+    with torch.cuda.device(device):
+        rc = fn(C, D, K, tile, n_out, geom)
+    _check_rc(lib, "fused_chan", rc)
+    return dict(zip(FUSED_WIDE_GEOMETRY_KEYS, geom))
+
+
+def fused_chan_launch(lib, xf, ramp, mix, decimation: int, n_taps: int, out,
+                      path: str = "narrow") -> None:
+    """Launch ``lib``'s fused channelizer kernel ``path`` (``"narrow"`` or
+    ``"wide"``) on checked CUDA tensors (see
+    :func:`fused_channelize_kernel`) into ``out`` ``[C, 2, n_out]``, on
+    the planes' device and its current stream; raises ``RuntimeError``
+    when the launch fails (also for a ``K`` past the narrow kernel's limit,
+    or planes and a ``K`` the wide one does not take)."""
     o_re, o_im, i_re, i_im = ramp
     h, phi = mix
     C, _, n_out = out.shape
+    entry = lib.fused_chan_wide_launch if path == "wide" else lib.fused_chan_launch
     with torch.cuda.device(xf.device):  # the C entry launches on the current device
-        rc = lib.fused_chan_launch(
+        rc = entry(
             xf.data_ptr(), xf.stride(0), xf.shape[-1], h.data_ptr(), phi.data_ptr(), C,
             decimation, -(-n_taps // decimation), o_re.data_ptr(), o_im.data_ptr(),
             o_re.shape[-1], i_re.data_ptr(), i_im.data_ptr(), i_re.shape[-1], out.data_ptr(),
@@ -502,12 +557,14 @@ def fused_channelize_kernel(xf: torch.Tensor, g2: torch.Tensor, ramp, decimation
     table ``[C, 2, D]``.
 
     CPU tensors: the plain version (folded: ``g2`` and the ramp). CUDA
-    tensors: the kernel (factored: the ramp, ``h`` and ``phi``), which
-    reads the planes where they lie (each plane's samples contiguous, any
+    tensors: a kernel (factored: the ramp, ``h`` and ``phi``), the one
+    :func:`fused_chan_path` picks from the plan and the planes' alignment,
+    counted in ``tracing`` as ``chan.k5.wide`` or ``chan.k5.narrow``. Both
+    read the planes where they lie (each plane's samples contiguous, any
     plane stride); the tables must be contiguous, and the launch raises
-    ``RuntimeError`` for ``256 + K - 1 > tile``. Raises on any other
-    dtype, shape, layout or device, and when the block is shorter than the
-    filter.
+    ``RuntimeError`` for ``256 + K - 1 > tile`` (narrow) or ``8 + K - 1 >
+    tile`` (wide). Raises on any other dtype, shape, layout or device, and
+    when the block is shorter than the filter.
     """
     if not isinstance(mix, (tuple, list)) or len(mix) != 2:
         raise TypeError("mix must be the pair (h, phi)")
@@ -551,8 +608,10 @@ def fused_channelize_kernel(xf: torch.Tensor, g2: torch.Tensor, ramp, decimation
     if xf.stride(1) != 1 or not all(t.is_contiguous() for t in tens[1:]):
         raise ValueError("the fused channelizer kernel reads contiguous plane rows and tables")
     out = torch.empty((C, 2, n_out), dtype=torch.float32, device=xf.device)
-    fused_chan_launch(_fused_lib(), xf, ramp, mix, D, n_taps, out)
+    path = fused_chan_path(C, D, K, xf.stride(0), xf.data_ptr())
+    fused_chan_launch(_fused_lib(), xf, ramp, mix, D, n_taps, out, path)
     fused_channelize_kernel.launches += 1
+    tracing.count(f"chan.k5.{path}")
     return out
 
 

@@ -21,7 +21,8 @@ Tolerances: corr atol 2e-5, energies rtol 1e-5 (float32 sums in another
 order); the polyphase FIR bit-equal to its plain version (the same
 products summed in the same order, cast once) for every dtype pair, in
 its vector and its scalar instantiation; the multi-lag rows' energies rtol 1e-5 and each lag product within ``1e-5 *
-sqrt(e_r * e_{r+l})``; the fused channelizer within ``2 * (2DK + 4) *
+sqrt(e_r * e_{r+l})``; the fused channelizer, on each of its two
+kernels (the path rule's counter checked), within ``2 * (2DK + 4) *
 2^-24 * sum|g2 row| * max|x|`` (twice the worst-case float32 rounding of
 a sum of 2DK products, plus the ramp's products); receiver results as in
 test_torch_dense.py."""
@@ -31,14 +32,14 @@ import pytest
 import torch
 
 from lora_tpu_torch import (DenseReceiver, LoRaConfig, MultiSFWidebandReceiver, PlanGateway,
-                            WidebandReceiver)
+                            WidebandReceiver, tracing)
 from lora_tpu_torch.channelizer import fused_tables, pfb_channel_freqs
 from lora_tpu_torch.ops.cuda_kernels import (detection_metrics_kernel,
                                              detection_metrics_planes,
                                              detection_metrics_tile_kernel,
                                              detection_metrics_wm_kernel,
                                              detection_metrics_wm_planes,
-                                             fused_channelize_kernel,
+                                             fused_chan_path, fused_channelize_kernel,
                                              fused_channelize_planes,
                                              lag_rows_kernel, lag_rows_planes,
                                              _lag_vector_width, _pfb_vector_width, pfb_fir_kernel,
@@ -544,13 +545,27 @@ FUSED_GEOMS = [(7, 8, 77, 3604480), (23, 32, 309, 14417920), (7, 8, 77, 100003),
                (1, 4, 19, 4429), (2, 1, 31, 3000), (2, 2, 301, 5000), (3, 16, 1001, 40000)]
 
 
-def _check_fused(C, D, ntaps, L, device):
+def _check_fused(C, D, ntaps, L, device, view="pitch", path=None):
+    """The kernel against its plain version on planes laid out as ``view``
+    says: ``pitch`` a plane stride of L + 5, ``aligned`` 16-byte aligned
+    planes and stride, ``offset`` the view ``x[:, 1:]``; with ``path``, the
+    launch must count as that kernel (``chan.k5.<path>``) and only it."""
     g2, ramp, mix = _fused_tables(C, D, ntaps, L, device)
-    x = torch.randn((2, L + 5), device=device)[:, :L]     # a plane stride past L
-    before = fused_channelize_kernel.launches
+    if view == "pitch":
+        x = torch.randn((2, L + 5), device=device)[:, :L]     # a plane stride past L
+    elif view == "aligned":
+        x = torch.randn((2, -(-L // 4) * 4 + 4), device=device)[:, :L]
+    else:
+        x = torch.randn((2, L + 1), device=device)[:, 1:]
+    before, counts = fused_channelize_kernel.launches, tracing.counters()
     got = fused_channelize_kernel(x, g2, ramp, D, ntaps, mix)
     torch.cuda.synchronize()
     assert fused_channelize_kernel.launches == before + 1
+    if path is not None:
+        assert fused_chan_path(C, D, -(-ntaps // D), x.stride(0), x.data_ptr()) == path
+        after = tracing.counters()
+        assert {p: after[f"chan.k5.{p}"] - counts[f"chan.k5.{p}"]
+                for p in ("wide", "narrow")} == {p: int(p == path) for p in ("wide", "narrow")}
     want = fused_channelize_planes(x, g2, ramp, D, ntaps, 1024)
     assert got.shape == want.shape == (C, 2, (L - ntaps) // D + 1) and got.is_contiguous()
     bound = 2 * (g2.shape[1] + 4) * 2.0 ** -24 * float(g2.abs().sum(1).max()) \
@@ -561,6 +576,18 @@ def _check_fused(C, D, ntaps, L, device):
 @pytest.mark.parametrize("C,D,ntaps,L", FUSED_GEOMS)
 def test_fused_chan_kernel_matches_plain(cuda_device, C, D, ntaps, L):
     _check_fused(C, D, ntaps, L, cuda_device)
+
+
+# the benchmark cell's shape (64 channels, D = 64, 617 taps) on aligned
+# planes (the wide kernel), on the view x[:, 1:] (the first kernel), and
+# with a ragged L whose last run of rows is partial (wide); the US915 plan
+# shape on aligned planes
+@pytest.mark.parametrize("C,D,ntaps,L,view,path", [
+    (64, 64, 617, 64 * 60000, "aligned", "wide"), (64, 64, 617, 64 * 60000, "offset", "narrow"),
+    (64, 64, 617, 64 * 60000 + 37, "aligned", "wide"),
+    (23, 32, 309, 14417920, "aligned", "wide")])
+def test_fused_chan_kernel_paths(cuda_device, C, D, ntaps, L, view, path):
+    _check_fused(C, D, ntaps, L, cuda_device, view, path)
 
 
 def test_fused_chan_kernel_tap_limit(cuda_device):

@@ -14,7 +14,10 @@ on the CPU.
   definition and JAX's mixer factors, and a torch mirror of the kernel's
   factored arithmetic (blocks of 256 outputs, the block's ramp phasor,
   the ramp's inner table, the phase table, the real taps) against JAX's
-  Pallas kernel in interpret mode (rtol = atol = 2e-4).
+  Pallas kernel in interpret mode (rtol = atol = 2e-4); a torch mirror
+  of the wide-plan kernel's arithmetic (runs of rows, the row ramp after
+  the sum over phases) against JAX's factored path (the same tolerance),
+  and the rule that picks between the two kernels.
 - ``PlanGateway.run`` against JAX's on tests/test_plans.py's captures, on
   the port's own tables and on JAX's taps, folded matrix and ramp, and on
   a short US915 capture (23 channels at 8 Msps): frames equal field by
@@ -34,9 +37,9 @@ from lora_tpu.config import LoRaConfig as JConfig
 from lora_tpu.ops.xfer import pack_iq as jpack_iq
 from lora_tpu.tx.modulator import modulate_frame
 
-from lora_tpu_torch import PlanGateway, channelizer as chan, plans
+from lora_tpu_torch import PlanGateway, channelizer as chan, plans, tracing
 from lora_tpu_torch.convert import load_plan_tables
-from lora_tpu_torch.ops.cuda_kernels import (fused_channelize_kernel,
+from lora_tpu_torch.ops.cuda_kernels import (fused_chan_path, fused_channelize_kernel,
                                              fused_channelize_planes)
 
 from test_torch_multi_sf import assert_frames_equal
@@ -85,6 +88,37 @@ def _mirror_factored(xf, taps, offs, rate, D, T=256, tile=1024):
         y = sum((z[:, j:j + T] * hk[j]).sum(-1) for j in range(K))  # [C, T]
         blocks.append(R[:, None] * y)
     y = torch.cat(blocks, dim=1)[:, :n_out]
+    return torch.stack([y.real, y.imag], dim=1)
+
+
+def _mirror_wide(xf, taps, offs, rate, D, rr, tile=1024):
+    """The wide-plan kernel's arithmetic, in torch: runs of ``rr`` rows
+    of ``D`` samples from row ``rs`` on, each completing the ``rr - K + 1``
+    outputs from ``rs`` on; ``t_j[m] = sum_d h[j*D + d] * (phi_c[d] *
+    x[m*D + d])``, then ``y_c[n] = R_c[rs] * sum_j rho_c[n - rs + j] *
+    t_j[n + j]`` with ``R_c[rs]`` the output ramp at ``rs`` (outer times
+    inner factor) and ``rho`` the ramp's inner table; float32 throughout."""
+    _, (o_re, o_im, i_re, i_im), (h, phi) = chan.fused_tables(offs, rate, taps, D,
+                                                              xf.shape[-1], "cpu", tile)
+    K = h.numel() // D
+    L = xf.shape[-1]
+    n_out = (L - len(taps)) // D + 1
+    run_out = rr - K + 1
+    assert run_out >= 1 and rr <= tile
+    nrun = -(-n_out // run_out)
+    xp = torch.nn.functional.pad(_t(xf), (0, ((nrun - 1) * run_out + rr) * D - L))
+    x = torch.complex(xp[0], xp[1]).view(-1, D)                       # [rows, D]
+    outer, inner = torch.complex(o_re, o_im), torch.complex(i_re, i_im)
+    ph = torch.complex(phi[:, 0], phi[:, 1])                           # [C, D]
+    hk = h.view(K, D).to(torch.complex64)
+    t = (x[None] * ph[:, None, :]) @ hk.T                              # [C, rows, K]
+    runs = []
+    for rs in range(0, nrun * run_out, run_out):
+        R = outer[:, rs // tile] * inner[:, rs % tile]                  # [C]
+        w = inner[:, :rr, None] * t[:, rs:rs + rr]                      # [C, rr, K]
+        y = sum(w[:, j:j + run_out, j] for j in range(K))               # [C, run_out]
+        runs.append(R[:, None] * y)
+    y = torch.cat(runs, dim=1)[:, :n_out]
     return torch.stack([y.real, y.imag], dim=1)
 
 
@@ -163,6 +197,61 @@ def test_factored_mirror_matches_pallas_interpret(D, ntaps, C, L):
     got = _mirror_factored(xf, taps, offs, rate, D)
     assert got.shape == (C, 2, (L - ntaps) // D + 1) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("D,ntaps,C,L,rr", [(64, 617, 64, 64 * 2500 + 37, 1024),
+                                            (64, 617, 64, 64 * 2500, 40),
+                                            (32, 309, 23, 45000, 56), (8, 77, 7, 33000, 40)],
+                         ids=["cell-ragged", "cell-short-runs", "US915", "EU868"])
+def test_wide_mirror_matches_jax_factored(D, ntaps, C, L, rr):
+    """The wide-plan kernel's arithmetic against JAX's factored path: the
+    cell's shape (64 channels, D = 64, 617 taps: past the Pallas kernel's
+    gate) with a ragged L and runs as long as the ramp's tile, and with
+    short runs; the US915 and EU868 plan shapes with their own taps."""
+    rate = D * 250e3
+    if ntaps in (77, 309):
+        taps = chan.firdes_low_pass(1.0, rate, 77.5e3, 62.5e3)
+        assert len(taps) == ntaps
+    else:
+        taps = np.random.default_rng(12).normal(0, 0.1, ntaps).astype(np.float32)
+    offs = np.linspace(-0.4 * rate, 0.4 * rate, C)
+    xf = jpack_iq(_iq(L, 11))
+    outer, inner = jchan.make_mixer_factors(offs, rate, L)
+    want = np.asarray(jchan.channelize_list_planes_factored(jnp.asarray(xf), taps, outer,
+                                                            inner, D))
+    got = _mirror_wide(xf, taps, offs, rate, D, rr)
+    assert got.shape == (C, 2, (L - ntaps) // D + 1) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
+
+
+# C, D, K, plane stride (samples), address of the first sample, the kernel
+_CELL_L = 546_702_016
+_PATHS = [
+    (64, 64, 10, _CELL_L, 0x7f0000000000, "wide"),        # the cell's planes
+    (64, 64, 10, _CELL_L, 0x7f0000000004, "narrow"),      # x[:, 1:]: base off 16 bytes
+    (64, 64, 10, _CELL_L + 1, 0x7f0000000000, "narrow"),  # a plane stride off 16 bytes
+    (64, 64, 10, _CELL_L + 2, 0x7f0000000008, "narrow"),
+    (7, 8, 10, 3604480, 0x7f0000000000, "narrow"),        # EU868
+    (64, 1, 10, _CELL_L, 0x7f0000000000, "narrow"),       # D = 1-3
+    (64, 2, 10, _CELL_L, 0x7f0000000000, "narrow"),
+    (64, 3, 10, _CELL_L, 0x7f0000000000, "narrow"),
+    (64, 62, 10, _CELL_L, 0x7f0000000000, "narrow"),      # D not a multiple of 4
+    (64, 64, 11, _CELL_L, 0x7f0000000000, "narrow"),      # K outside the built range
+    (64, 64, 7, _CELL_L, 0x7f0000000000, "narrow"),
+    (64, 64, 8, _CELL_L, 0x7f0000000000, "wide"),
+    (64, 256, 10, _CELL_L, 0x7f0000000000, "narrow"),     # D past the shared memory
+    (96, 64, 10, _CELL_L, 0x7f0000000000, "wide"),        # two blocks of channels
+    (17, 16, 10, 1024, 0x7f0000000000, "wide"),           # at the measured thresholds
+    (16, 64, 10, 1024, 0x7f0000000000, "narrow"),         # a channel fewer
+    (64, 12, 10, 1024, 0x7f0000000000, "narrow"),         # a narrower D
+]
+
+
+@pytest.mark.parametrize("C,D,K,stride,ptr,want", _PATHS)
+def test_fused_chan_path(C, D, K, stride, ptr, want):
+    """The rule that picks K5's kernel, a pure function of the plan and
+    of the planes' alignment (the thresholds: C >= 17, D >= 16)."""
+    assert fused_chan_path(C, D, K, stride, ptr) == want
 
 
 # ------------------------------------------------------- the factored path
@@ -246,6 +335,22 @@ def test_kernel_wrapper_on_cpu_is_the_plain_version():
     got = fused_channelize_kernel(xf, g2, ramp, D, ntaps, mix)
     assert fused_channelize_kernel.launches == before
     assert torch.equal(got, fused_channelize_planes(xf, g2, ramp, D, ntaps, 256))
+
+
+def test_kernel_wrapper_on_cpu_counts_no_path():
+    """A CPU tensor at the cell's shape (64 channels, D = 64, 617 taps)
+    takes the plain version and touches neither path's counter."""
+    D, ntaps, C, L = 64, 617, 64, 64 * 40
+    taps = np.random.default_rng(3).normal(0, 0.1, ntaps).astype(np.float32)
+    offs = np.linspace(-6.3e6, 6.3e6, C)
+    xf = torch.from_numpy(jpack_iq(_iq(L, 3)))
+    g2, ramp, mix = chan.fused_tables(offs, 16e6, taps, D, L, "cpu")
+    assert fused_chan_path(C, D, -(-ntaps // D), xf.stride(0), 0) == "wide"
+    before = tracing.counters()
+    got = fused_channelize_kernel(xf, g2, ramp, D, ntaps, mix)
+    after = tracing.counters()
+    assert [after[k] - before[k] for k in ("chan.k5.wide", "chan.k5.narrow")] == [0, 0]
+    assert torch.equal(got, fused_channelize_planes(xf, g2, ramp, D, ntaps, 1024))
 
 
 @pytest.mark.parametrize("case", ["f64", "complex", "three-planes", "g2-width", "g2-odd-rows",
